@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (gpud_tpu_torch) on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+
+1. device  - the card's name, and its name and power limit from nvidia-smi;
+2. build   - compiles gpud_tpu_torch/csrc/*.cu into build/kernels/;
+3. kernel  - the packed-scan kernel against its plain PyTorch version on the
+             card, exactly equal on edge cases and at the fleet-day and
+             retention shapes (4608 x 1440 and 4608 x 20160);
+4. fleet   - the main path: 32 host DBs of a 256-GPU pod of 8-GPU HGX H100
+             hosts (18 NVLink links per GPU, 144 links per host, L = 4608),
+             one day of one-minute snapshots each (T = 1440, 6.6 M rows) with
+             seeded faults, scanned by ``fleet_scan`` on the default device;
+             it must launch the kernel exactly once, classify every seeded
+             fault, agree with ``device="cpu"``, and the CLI must agree too;
+5. timing  - CUDA-event medians of the kernel and of its plain version at
+             both shapes, beside the memory bound.
+
+The line before the last is the ``{"kernels": [...]}`` record; the last line
+is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
+exits non-zero without the ``ok`` line. Data comes from fixed seeds.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import sqlite3
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from gpud_tpu_torch.fleet_scan import (  # noqa: E402
+    MAX_STEPS,
+    TABLE,
+    TOMBSTONE_TABLE,
+    fleet_scan,
+    load_fleet_history,
+)
+from gpud_tpu_torch.ops import _build  # noqa: E402
+from gpud_tpu_torch.ops.packed_scan import (  # noqa: E402
+    packed_from_numpy,
+    scan_links_packed,
+    scan_links_packed_reference,
+)
+from gpud_tpu_torch.ops.window_scan import classify_links  # noqa: E402
+
+SEED = 20260
+# one 256-GPU pod of 8-GPU HGX H100 hosts, 18 NVLink links per GPU
+HOSTS, GPUS_PER_HOST, LINKS_PER_GPU = 32, 8, 18
+LINKS_PER_HOST = GPUS_PER_HOST * LINKS_PER_GPU
+T_DAY = 1440  # one day of one-minute snapshots
+STEP_SECONDS = 60.0
+WINDOW_SECONDS = 86400.0
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the
+# non-tensor 32-bit rate, which bounds the scan's integer compares and adds
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# per sample: 6 bytes read (int8 state, int32 counter, bool valid); about 12
+# integer operations (valid test and count, 4 compares, 2 ands, 2 adds, a
+# 64-bit subtract, max and add); per link: 5 int64 results written
+BYTES_PER_SAMPLE, OPS_PER_SAMPLE, BYTES_PER_LINK_OUT = 6, 12, 5 * 8
+L2_BYTES = 50 * 2**20
+
+DDL = (
+    f"""CREATE TABLE IF NOT EXISTS {TABLE} (
+        ts REAL NOT NULL,
+        link TEXT NOT NULL,
+        state INTEGER NOT NULL,
+        tx_bytes INTEGER NOT NULL DEFAULT 0,
+        rx_bytes INTEGER NOT NULL DEFAULT 0,
+        tx_errors INTEGER NOT NULL DEFAULT 0,
+        rx_errors INTEGER NOT NULL DEFAULT 0,
+        crc_errors INTEGER NOT NULL DEFAULT 0,
+        replays INTEGER NOT NULL DEFAULT 0
+    )""",
+    f"CREATE INDEX IF NOT EXISTS idx_{TABLE}_link_ts ON {TABLE} (link, ts)",
+    f"CREATE INDEX IF NOT EXISTS idx_{TABLE}_ts ON {TABLE} (ts)",
+    f"CREATE TABLE IF NOT EXISTS {TOMBSTONE_TABLE} "
+    "(link TEXT PRIMARY KEY, ts REAL NOT NULL)",
+)
+
+
+def line(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+# -- 1. device ----------------------------------------------------------------
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    name = torch.cuda.get_device_name(0)
+    line("device", f"{name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                   f"{torch.cuda.device_count()} device(s)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    return smi
+
+
+# -- 2. build -----------------------------------------------------------------
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    _build.load_library()
+    line("build", f"{time.perf_counter() - t0:.3f} s -> "
+                  f"{_build.library_path().relative_to(ROOT)}")
+
+
+# -- 3. kernel vs plain version ------------------------------------------------
+
+def packed_case(rng, L, T, *, prefix=True, odd_states=False, empty_rows=0.05):
+    """Seeded [L, T] histories: prefix-valid rows of random length (some
+    all-invalid, some full), counters with resets, garbage in the padding."""
+    states = rng.integers(0, 2, (L, T), dtype=np.int8)
+    if odd_states:  # pin the >= 1 / <= 0 rule on values outside {0, 1}
+        u = rng.random((L, T))
+        states[u < 0.05] = 2
+        states[(u >= 0.05) & (u < 0.10)] = -1
+    counters = np.cumsum(rng.integers(0, 5, (L, T), dtype=np.int32), axis=1,
+                         dtype=np.int32)
+    reset_rows = np.flatnonzero(rng.random(L) < 0.3)
+    if T > 1 and reset_rows.size:
+        k = rng.integers(1, T, reset_rows.size)
+        cols = np.arange(T)[None, :]
+        sub = counters[reset_rows, k][:, None] * (cols >= k[:, None])
+        counters[reset_rows] -= sub.astype(np.int32)
+    if prefix:
+        n = rng.integers(0, T + 1, L)
+        n[rng.random(L) < 0.2] = T
+        n[rng.random(L) < empty_rows] = 0
+        valid = np.arange(T)[None, :] < n[:, None]
+    else:
+        valid = rng.random((L, T)) < 0.7
+    return states, counters, valid
+
+
+def compare_on_card(label, states, counters, valid) -> int:
+    st, ct, vl = packed_from_numpy(states, counters, valid, "cuda")
+    got = scan_links_packed(st, ct, vl)
+    torch.cuda.synchronize()
+    ref = scan_links_packed_reference(st, ct, vl)
+    torch.cuda.synchronize()
+    err = 0
+    for field in got._fields:
+        a, b = getattr(got, field), getattr(ref, field)
+        if a.shape != b.shape:
+            raise AssertionError(f"{label}: {field} shape {a.shape} != {b.shape}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    if err:
+        raise AssertionError(f"{label}: kernel differs from plain version by {err}")
+    line("kernel", f"{label:34s} L={states.shape[0]:5d} T={states.shape[1]:6d} "
+                   f"exact (max |err| 0)")
+    return err
+
+
+def phase_kernel() -> int:
+    rng = np.random.default_rng(SEED)
+    cases = [
+        ("odd L and T", packed_case(rng, 997, 1003)),
+        ("T = 1", packed_case(rng, 77, 1)),
+        ("L = 3, T = 17", packed_case(rng, 3, 17)),
+        ("states 2 and -1", packed_case(rng, 513, 259, odd_states=True)),
+        ("all rows all-invalid", packed_case(rng, 41, 300, empty_rows=1.0)),
+        ("ragged (non-prefix) mask", packed_case(rng, 301, 777, prefix=False)),
+        ("fleet day 4608 x 1440", packed_case(rng, 4608, T_DAY)),
+        ("retention 4608 x 20160", packed_case(rng, 4608, MAX_STEPS)),
+    ]
+    # the cases must hold counter resets (steps < 0), which add nothing
+    _s, c, _v = cases[0][1]
+    if not (np.diff(c.astype(np.int64), axis=1) < 0).any():
+        raise AssertionError("the odd-shape case holds no counter reset")
+    return max(compare_on_card(label, *case) for label, case in cases)
+
+
+# -- 4. fleet scan, the main path ------------------------------------------------
+
+def link_name(g: int, k: int) -> str:
+    return f"gpu{g}/nvlink{k}"
+
+
+def seeded_faults(T: int):
+    """host index -> {link: (kind, expected class)}; every link not named
+    here is healthy."""
+    return {
+        3: {link_name(2, 5): ("down last hour", "unhealthy")},
+        17: {link_name(7, 0): ("down last hour", "unhealthy")},
+        30: {link_name(0, 17): ("down last hour", "unhealthy")},
+        5: {link_name(1, 3): ("flapping, last 6 h", "unhealthy")},
+        21: {link_name(4, 9): ("one drop and recovery", "degraded")},
+        8: {link_name(6, 11): ("CRC +150 over 2 h", "degraded")},
+        26: {link_name(3, 2): ("CRC +5000 burst", "degraded")},
+        14: {link_name(5, 1): ("CRC counter reset, +70", "healthy")},
+        # faults before the host's global tombstone at mid-day are forgiven
+        12: {
+            link_name(0, 0): ("down before tombstone", "healthy"),
+            link_name(3, 7): ("flapping before tombstone", "healthy"),
+        },
+    }
+
+
+def host_rows(h: int, now: float, T: int):
+    links = [link_name(g, k) for g in range(GPUS_PER_HOST)
+             for k in range(LINKS_PER_GPU)]
+    states = np.ones((len(links), T), dtype=np.int64)
+    crc = np.full((len(links), T), 1_000_000_000 + 1000 * h, dtype=np.int64)
+    crc += np.arange(len(links))[:, None]
+    m = np.arange(T)
+    for link, (kind, _cls) in seeded_faults(T).get(h, {}).items():
+        i = links.index(link)
+        if kind == "down last hour":
+            states[i, T - 60:] = 0
+        elif kind == "flapping, last 6 h":
+            states[i, (m >= T - 360) & (m % 20 < 5)] = 0
+        elif kind == "one drop and recovery":
+            states[i, T - 180:T - 170] = 0
+        elif kind == "CRC +150 over 2 h":
+            crc[i] += np.clip(m - (T - 120), 0, None) * 150 // 119
+        elif kind == "CRC +5000 burst":
+            crc[i, T - 30:] += 5000
+        elif kind == "CRC counter reset, +70":
+            crc[i] += np.minimum(m, 40)
+            crc[i, T // 2:] = np.minimum(m[T // 2:] - T // 2, 30)
+        elif kind == "down before tombstone":
+            states[i, T // 14:T * 5 // 12] = 0
+        elif kind == "flapping before tombstone":
+            states[i, (m >= T // 7) & (m < T // 4) & (m % 8 < 3)] = 0
+    # the newest sample is 30 s old, one per minute before it
+    ts = now - 30.0 - STEP_SECONDS * (T - 1 - m)
+    for i, link in enumerate(links):
+        yield from zip(ts.tolist(), [link] * T, states[i].tolist(), crc[i].tolist())
+
+
+def write_host_db(path: Path, h: int, now: float, T: int) -> None:
+    conn = sqlite3.connect(path)
+    try:
+        conn.execute(DDL[0])
+        conn.execute(DDL[3])
+        conn.executemany(
+            f"INSERT INTO {TABLE} (ts, link, state, crc_errors) VALUES (?,?,?,?)",
+            host_rows(h, now, T),
+        )
+        conn.execute(DDL[1])  # indexes after the bulk insert: same schema
+        conn.execute(DDL[2])
+        if h == 12:
+            # set-healthy on the whole host at the middle of its history
+            conn.execute(f"INSERT INTO {TOMBSTONE_TABLE} (link, ts) VALUES (?, ?)",
+                         ("*", now - STEP_SECONDS * T / 2))
+        conn.commit()
+    finally:
+        conn.close()
+
+
+def expected_classes(hosts: int, T: int) -> dict:
+    exp = {}
+    for h in range(hosts):
+        for g in range(GPUS_PER_HOST):
+            for k in range(LINKS_PER_GPU):
+                exp[f"host{h:02d}/{link_name(g, k)}"] = "healthy"
+        for link, (_kind, cls) in seeded_faults(T).get(h, {}).items():
+            exp[f"host{h:02d}/{link}"] = cls
+    return exp
+
+
+def sync_time(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fleet(workdir: Path, hosts: int = HOSTS, T: int = T_DAY) -> dict:
+    now = float(int(time.time()))
+    t0 = time.perf_counter()
+    dbs = []
+    for h in range(hosts):
+        path = workdir / f"host{h:02d}.db"
+        write_host_db(path, h, now, T)
+        dbs.append(str(path))
+    t_write = time.perf_counter() - t0
+    line("fleet", f"wrote {hosts} host DBs, {hosts * LINKS_PER_HOST * T} rows, "
+                  f"in {t_write:.2f} s")
+
+    # the main path, through the entry point, on the default device
+    scan_links_packed.launches = 0
+    res, t_main = sync_time(
+        lambda: fleet_scan(dbs, window_seconds=WINDOW_SECONDS, now=now))
+    launches = scan_links_packed.launches
+    line("fleet", f"fleet_scan: {len(res['links'])} links, {res['summary']}, "
+                  f"{t_main:.3f} s, packed_scan launches {launches}")
+    if launches != 1:
+        raise AssertionError(f"fleet_scan launched the kernel {launches} times, not 1")
+
+    exp = expected_classes(hosts, T)
+    if res["links"] != exp:
+        bad = {k: (res["links"].get(k), v) for k, v in exp.items()
+               if res["links"].get(k) != v}
+        raise AssertionError(f"misclassified links (got, expected): {dict(list(bad.items())[:10])}")
+    if res["truncated_links"] or res["devices"] != 1:
+        raise AssertionError(f"unexpected truncation/devices: {res['truncated_links']}, {res['devices']}")
+    line("fleet", "every seeded fault has its expected class, all other links healthy")
+
+    res_cpu = fleet_scan(dbs, window_seconds=WINDOW_SECONDS, now=now, device="cpu")
+    for key in ("links", "summary", "truncated_links"):
+        if res_cpu[key] != res[key]:
+            raise AssertionError(f"device='cpu' disagrees with the card on {key}")
+    line("fleet", "device='cpu' gives the same links, summary and truncated_links")
+
+    # the CLI on two of the DBs (it scans up to its own clock)
+    pick = [dbs[3], dbs[8]]
+    proc = subprocess.run(
+        [sys.executable, "-m", "gpud_tpu_torch", "fleet-scan", "--json",
+         "--window", str(int(WINDOW_SECONDS)), *pick],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode not in (0, 1):
+        raise AssertionError(f"CLI failed with rc {proc.returncode}: {proc.stderr[-4000:]}")
+    cli = json.loads(proc.stdout)
+    want = {k: v for k, v in res["links"].items() if k.startswith(("host03/", "host08/"))}
+    if cli["links"] != want or cli["devices"] != 1 or proc.returncode != 1:
+        raise AssertionError(f"CLI disagrees: rc {proc.returncode}, {cli['summary']}, "
+                             f"stderr {proc.stderr[-2000:]}")
+    line("fleet", f"CLI fleet-scan --json on 2 DBs: {cli['summary']}, rc {proc.returncode}")
+
+    # seconds per phase: the same steps fleet_scan takes, one at a time
+    (names, states, counters, valid, _tr), t_load = sync_time(
+        lambda: load_fleet_history(dbs, WINDOW_SECONDS, now=now))
+    tensors, t_h2d = sync_time(lambda: packed_from_numpy(states, counters, valid, "cuda"))
+    scan, t_kernel = sync_time(lambda: scan_links_packed(*tensors))
+    classes, t_classify = sync_time(lambda: classify_links(scan).tolist())
+    if not len(classes) == len(names) == hosts * LINKS_PER_HOST:
+        raise AssertionError(f"{len(classes)} classes for {len(names)} links")
+    phases = {"db_write_s": t_write, "load_fleet_history_s": t_load,
+              "host_to_device_s": t_h2d, "kernel_s": t_kernel,
+              "classify_s": t_classify, "fleet_scan_total_s": t_main}
+    line("fleet", "seconds by phase: " + json.dumps(phases))
+    return {"launches": launches, "phases": phases}
+
+
+# -- 5. timings ---------------------------------------------------------------------
+
+def median_ms(fn, flush=None, warmup=3, iters=20) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def bound(valid: np.ndarray):
+    """Least time for the scan of these inputs: every valid flag read once,
+    the state and counter of every valid sample read once, 5 results per
+    link written; or the integer operations, if they take longer."""
+    L, T = valid.shape
+    n_valid = int(valid.sum())
+    nbytes = L * T + n_valid * (BYTES_PER_SAMPLE - 1) + L * BYTES_PER_LINK_OUT
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_valid * OPS_PER_SAMPLE / PEAK_OPS_PER_S * 1e3
+    return nbytes, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_timing() -> dict:
+    rng = np.random.default_rng(SEED + 1)
+    scratch = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_  # writing 200 MB evicts the 50 MB L2
+    shapes = {}
+    for L, T in ((4608, T_DAY), (4608, MAX_STEPS)):
+        # full histories, as a fleet that has sampled every minute has
+        states, counters, valid = packed_case(rng, L, T, empty_rows=0.0)
+        valid[:] = True
+        st, ct, vl = packed_from_numpy(states, counters, valid, "cuda")
+        nbytes, bound_ms, bound_by = bound(valid)
+        kernel = lambda: scan_links_packed(st, ct, vl)  # noqa: E731
+        plain = lambda: scan_links_packed_reference(st, ct, vl)  # noqa: E731
+        ms = median_ms(kernel, flush)
+        rec = {
+            "ms": ms,
+            "plain_ms": median_ms(plain, flush),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bytes": nbytes,
+            "gb_per_s": nbytes / ms / 1e6,
+            "share_of_bound": bound_ms / ms,
+            "ms_warm_l2": median_ms(kernel),
+            "fits_in_l2": nbytes <= L2_BYTES,
+        }
+        shapes[f"{L}x{T}"] = rec
+        line("timing", f"{L}x{T}: " + json.dumps(rec))
+    return shapes
+
+
+def main() -> int:
+    smi = phase_device()
+    phase_build()
+    max_err = phase_kernel()
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dbs_", dir=build_dir))
+    try:
+        fleet = phase_fleet(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    shapes = phase_timing()
+    day = shapes[f"4608x{T_DAY}"]
+    print(json.dumps({"kernels": [{
+        "name": "packed_scan",
+        "route": "cuda",
+        "source": "gpud_tpu_torch/csrc/packed_scan.cu",
+        "replaces": "gpud_tpu/ops/pallas_scan.py:48",
+        "launches": fleet["launches"],
+        "max_abs_err": max_err,
+        "ms": day["ms"],
+        "plain_ms": day["plain_ms"],
+        "bound_ms": day["bound_ms"],
+        "bound_by": day["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this scan",
+        "shapes": shapes,
+        "exact": max_err == 0,
+        "card": smi,
+        "fleet_phases_s": fleet["phases"],
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""tpud's accelerator path in PyTorch and CUDA, for NVIDIA H100 hosts.
+
+The package mirrors ``gpud_tpu``'s module names so each counterpart is easy
+to find: ``fleet_scan`` (the fleet-wide link-health scan), ``ops.window_scan``
+(the ragged scan and the health classes) and ``ops.packed_scan`` (the packed
+scan, whose CUDA kernel lives in ``csrc/packed_scan.cu``).
+
+Entry points run on the card unless the caller passes ``device="cpu"``; see
+:func:`gpud_tpu_torch.device.resolve_device`.
+"""
+
+from gpud_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]
