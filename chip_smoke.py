@@ -6,18 +6,26 @@
 Phases, each printing its own lines:
 
 1. device  - the card's name, and its name and power limit from nvidia-smi;
-2. build   - compiles gpud_tpu_torch/csrc/*.cu into build/kernels/;
+2. build   - compiles gpud_tpu_torch/csrc/*.cu into build/kernels/ and
+             prints what ptxas reports of each kernel (registers, spills);
 3. kernel  - the packed-scan kernel against its plain PyTorch version on the
-             card, exactly equal on edge cases and at the fleet-day and
-             retention shapes (4608 x 1440 and 4608 x 20160);
+             card, exactly equal, one launch per case, on edge cases (T
+             around the kernel's 16-sample chunks and 512-sample steps,
+             misaligned rows and base pointers, extreme counters) and at the
+             fleet-day and retention shapes (4608 x 1440 and 4608 x 20160);
 4. fleet   - the main path: 32 host DBs of a 256-GPU pod of 8-GPU HGX H100
              hosts (18 NVLink links per GPU, 144 links per host, L = 4608),
              one day of one-minute snapshots each (T = 1440, 6.6 M rows) with
              seeded faults, scanned by ``fleet_scan`` on the default device;
              it must launch the kernel exactly once, classify every seeded
              fault, agree with ``device="cpu"``, and the CLI must agree too;
-5. timing  - CUDA-event medians of the kernel and of its plain version at
-             both shapes, beside the memory bound.
+5. timing  - device time per call of the kernel and of its plain version
+             at both shapes, beside the memory bound: CUDA events around
+             batches of back-to-back calls on input copies that together
+             exceed the L2, with a device spin that keeps the host's
+             wrapper time out of the window; beside it the kernel's time
+             from torch.profiler, one launch alone after an L2 flush, and
+             the wrapper's host time per call.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
@@ -26,6 +34,7 @@ exits non-zero without the ``ok`` line. Data comes from fixed seeds.
 
 from __future__ import annotations
 
+import itertools
 import json
 import shutil
 import sqlite3
@@ -116,11 +125,17 @@ def phase_device() -> str:
 
 # -- 2. build -----------------------------------------------------------------
 
-def phase_build() -> None:
+def phase_build() -> dict:
     t0 = time.perf_counter()
     _build.load_library()
     line("build", f"{time.perf_counter() - t0:.3f} s -> "
                   f"{_build.library_path().relative_to(ROOT)}")
+    resources = _build.kernel_resources()
+    for name, r in resources.items():
+        line("build", f"ptxas {name}: " + json.dumps(r))
+    if "packed_scan_kernel" not in resources:
+        raise AssertionError(f"ptxas reported no packed_scan_kernel: {sorted(resources)}")
+    return resources
 
 
 # -- 3. kernel vs plain version ------------------------------------------------
@@ -151,10 +166,47 @@ def packed_case(rng, L, T, *, prefix=True, odd_states=False, empty_rows=0.05):
     return states, counters, valid
 
 
-def compare_on_card(label, states, counters, valid) -> int:
-    st, ct, vl = packed_from_numpy(states, counters, valid, "cuda")
+def boundary_case(rng, T):
+    """One row for each valid-prefix length around the kernel's 16-sample
+    chunks and 512-sample warp steps: the last valid sample at a lane's
+    last slot, a step's last slot, and one past either."""
+    ns = [n for n in (0, 1, 15, 16, 17, 31, 32, 33, 511, 512, 513, 527, 528,
+                      1023, 1024, 1025, T - 1, T) if n <= T]
+    states, counters, _ = packed_case(rng, len(ns), T, odd_states=True)
+    return states, counters, np.arange(T)[None, :] < np.array(ns)[:, None]
+
+
+def extreme_counters_case(rng, L, T):
+    """Counters that step between INT32_MIN and INT32_MAX: each positive step
+    is 2^32 - 1, and a row's sum passes 2^32 many times over."""
+    states, _, valid = packed_case(rng, L, T, empty_rows=0.0)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    counters = np.tile(np.where(np.arange(T) % 2 == 0, lo, hi).astype(np.int32), (L, 1))
+    odd = np.arange(L) % 2 == 1  # these rows: random extremes
+    counters[odd] = rng.choice(np.array([lo, hi, -1, 0, 1], dtype=np.int32),
+                               (int(odd.sum()), T))
+    return states, counters, valid
+
+
+def offset_view(x: torch.Tensor) -> torch.Tensor:
+    """x's values as a contiguous view one element into a larger allocation:
+    its data pointer is not 16-byte aligned."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+def compare_on_card(label, states, counters, valid, offset=()) -> int:
+    """The kernel against its plain version on one case; the arrays named in
+    ``offset`` are passed as views whose data pointers are not aligned."""
+    tensors = packed_from_numpy(states, counters, valid, "cuda")
+    st, ct, vl = (offset_view(x) if name in offset else x
+                  for name, x in zip(("states", "counters", "valid"), tensors))
+    before = scan_links_packed.launches
     got = scan_links_packed(st, ct, vl)
     torch.cuda.synchronize()
+    if scan_links_packed.launches != before + 1:
+        raise AssertionError(f"{label}: {scan_links_packed.launches - before} launches, not 1")
     ref = scan_links_packed_reference(st, ct, vl)
     torch.cuda.synchronize()
     err = 0
@@ -166,28 +218,44 @@ def compare_on_card(label, states, counters, valid) -> int:
             err = max(err, int((a.long() - b.long()).abs().max()))
     if err:
         raise AssertionError(f"{label}: kernel differs from plain version by {err}")
-    line("kernel", f"{label:34s} L={states.shape[0]:5d} T={states.shape[1]:6d} "
-                   f"exact (max |err| 0)")
+    line("kernel", f"{label:40s} L={states.shape[0]:5d} T={states.shape[1]:6d} "
+                   f"exact (max |err| 0), 1 launch")
     return err
 
 
 def phase_kernel() -> int:
     rng = np.random.default_rng(SEED)
     cases = [
-        ("odd L and T", packed_case(rng, 997, 1003)),
-        ("T = 1", packed_case(rng, 77, 1)),
-        ("L = 3, T = 17", packed_case(rng, 3, 17)),
-        ("states 2 and -1", packed_case(rng, 513, 259, odd_states=True)),
-        ("all rows all-invalid", packed_case(rng, 41, 300, empty_rows=1.0)),
-        ("ragged (non-prefix) mask", packed_case(rng, 301, 777, prefix=False)),
-        ("fleet day 4608 x 1440", packed_case(rng, 4608, T_DAY)),
-        ("retention 4608 x 20160", packed_case(rng, 4608, MAX_STEPS)),
+        ("odd L and T", packed_case(rng, 997, 1003), ()),
+        ("T = 1", packed_case(rng, 77, 1), ()),
+        ("L = 3, T = 17", packed_case(rng, 3, 17), ()),
+        ("states 2 and -1", packed_case(rng, 513, 259, odd_states=True), ()),
+        ("all rows all-invalid", packed_case(rng, 41, 300, empty_rows=1.0), ()),
+        ("ragged (non-prefix) mask", packed_case(rng, 301, 777, prefix=False), ()),
+        ("fleet day 4608 x 1440", packed_case(rng, 4608, T_DAY), ()),
+        ("retention 4608 x 20160", packed_case(rng, 4608, MAX_STEPS), ()),
+    ]
+    # T around a 16-sample chunk, a 512-sample warp step and two steps; odd
+    # T starts rows off the 16-byte grid
+    for T in (15, 16, 17, 511, 512, 513, 1025):
+        for L in (3, 997):
+            cases.append((f"T = {T}, L = {L}", packed_case(rng, L, T, odd_states=True), ()))
+    cases += [
+        ("last valid at lane/step edges, T 1040", boundary_case(rng, 1040), ()),
+        ("last valid at lane/step edges, T 1041", boundary_case(rng, 1041), ()),
+        ("base pointers off 16 B (all three)", packed_case(rng, 997, 1003),
+         ("states", "counters", "valid")),
+        ("counters' base pointer off 16 B", packed_case(rng, 301, T_DAY), ("counters",)),
+        ("valid's base pointer off, ragged mask",
+         packed_case(rng, 130, 1040, prefix=False), ("valid",)),
+        ("counters INT32_MIN <-> INT32_MAX", extreme_counters_case(rng, 61, 1040), ()),
+        ("L = 4609, one row past a block", packed_case(rng, 4609, 64), ()),
     ]
     # the cases must hold counter resets (steps < 0), which add nothing
     _s, c, _v = cases[0][1]
     if not (np.diff(c.astype(np.int64), axis=1) < 0).any():
         raise AssertionError("the odd-shape case holds no counter reset")
-    return max(compare_on_card(label, *case) for label, case in cases)
+    return max(compare_on_card(label, *case, offset=off) for label, case, off in cases)
 
 
 # -- 4. fleet scan, the main path ------------------------------------------------
@@ -356,22 +424,87 @@ def phase_fleet(workdir: Path, hosts: int = HOSTS, T: int = T_DAY) -> dict:
 
 # -- 5. timings ---------------------------------------------------------------------
 
-def median_ms(fn, flush=None, warmup=3, iters=20) -> float:
-    for _ in range(warmup):
-        fn()
+# The device spins this long per timed call before the window opens (the
+# spin is doubled when it did not cover the host): the host's wrapper time
+# (checks, allocation, the launch call) passes while the device is busy,
+# and the events' window holds device work alone.
+COVER_MS_PER_CALL = 0.5
+
+
+def spin_cycles_per_ms() -> float:
+    """Clock cycles per millisecond of ``torch.cuda._sleep``'s device spin."""
+    torch.cuda._sleep(1_000_000)  # warm-up
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(20_000_000)
+    e1.record()
+    e1.synchronize()
+    return 20_000_000 / e0.elapsed_time(e1)
+
+
+def median_ms(fn, arg_sets, cycles_per_ms, *, batch=20, reps=7, flush=None) -> float:
+    """Median device milliseconds per call of ``fn(*args)``: each window
+    between two CUDA events holds ``batch`` back-to-back calls, which take
+    the tuples of ``arg_sets`` in turn; ``flush`` runs before each window.
+
+    Before the first event the device spins, so that event fires only once
+    the host has queued the whole batch: the window holds no host time. A
+    window whose first event had fired before the host was done is dropped
+    and the spin doubled.
+    """
+    calls = itertools.cycle(arg_sets)
+    for args in arg_sets:  # warm-up
+        fn(*args)
     torch.cuda.synchronize()
+    cover = int(COVER_MS_PER_CALL * batch * cycles_per_ms)
     times = []
-    for _ in range(iters):
+    while len(times) < reps:
         if flush is not None:
             flush()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cover)
         e0.record()
-        fn()
+        for _ in range(batch):
+            fn(*next(calls))
         e1.record()
+        covered = not e0.query()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        if covered:
+            times.append(e0.elapsed_time(e1) / batch)
+        elif cover > 64 * COVER_MS_PER_CALL * batch * cycles_per_ms:
+            raise RuntimeError("a device spin of 64 x the cover did not cover the host")
+        else:
+            cover *= 2
     return statistics.median(times)
+
+
+def profiled_ms(fn, arg_sets, kernel: str, calls=20):
+    """Mean device milliseconds of the kernels named ``*kernel*`` per call of
+    ``fn(*args)`` over ``arg_sets`` in turn, from torch.profiler; None where
+    it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for args in itertools.islice(itertools.cycle(arg_sets), calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    # device_time_total since torch 2.4, cuda_time_total before
+    us = sum(e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+             for e in prof.key_averages() if kernel in e.key)
+    return us / calls / 1e3 if us else None
+
+
+def host_us_per_call(fn, args, calls=200) -> float:
+    """Host microseconds to run ``fn(*args)`` (for a kernel: check, allocate,
+    launch), the device left to run behind it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def bound(valid: np.ndarray):
@@ -388,37 +521,66 @@ def bound(valid: np.ndarray):
 
 def phase_timing() -> dict:
     rng = np.random.default_rng(SEED + 1)
-    scratch = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda")
-    flush = scratch.zero_  # writing 200 MB evicts the 50 MB L2
+    scratch = torch.zeros(4 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    # reading 200 MB evicts the 50 MB L2 and leaves it clean. Writing them
+    # leaves 50 MB of dirty lines, whose write-back then lands inside the
+    # next timed window: that figure is kept only beside older ones taken
+    # after such a flush.
+    flush = scratch.max
+    write_flush = scratch.zero_
+    cpm = spin_cycles_per_ms()
+    line("timing", f"device spin: {cpm:.0f} cycles per ms, "
+                   f"{COVER_MS_PER_CALL} ms per timed call before each window")
+    # one launch alone in the window: a one-thread kernel shows what the
+    # events and the start of any kernel add to the profiler's kernel span
+    empty_ms = median_ms(torch.cuda._sleep, [(1,)], cpm, batch=1, reps=20)
+    line("timing", f"an almost empty kernel alone between two events: {empty_ms:.5f} ms")
     shapes = {}
     for L, T in ((4608, T_DAY), (4608, MAX_STEPS)):
         # full histories, as a fleet that has sampled every minute has
         states, counters, valid = packed_case(rng, L, T, empty_rows=0.0)
         valid[:] = True
-        st, ct, vl = packed_from_numpy(states, counters, valid, "cuda")
+        inputs = packed_from_numpy(states, counters, valid, "cuda")
         nbytes, bound_ms, bound_by = bound(valid)
-        kernel = lambda: scan_links_packed(st, ct, vl)  # noqa: E731
-        plain = lambda: scan_links_packed_reference(st, ct, vl)  # noqa: E731
-        ms = median_ms(kernel, flush)
+        # copies of the inputs, together over 4x the L2, taken in turn: each
+        # call finds its inputs out of L2, with no flush between calls
+        cold = [inputs] + [tuple(x.clone() for x in inputs)
+                           for _ in range(-(-4 * L2_BYTES // nbytes))]
+        warm = [inputs]
+        kernel, plain = scan_links_packed, scan_links_packed_reference
+        ms = median_ms(kernel, cold, cpm)
+        prof_ms = profiled_ms(kernel, cold, "packed_scan_kernel")
         rec = {
             "ms": ms,
-            "plain_ms": median_ms(plain, flush),
+            "plain_ms": median_ms(plain, cold, cpm),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "bytes": nbytes,
             "gb_per_s": nbytes / ms / 1e6,
             "share_of_bound": bound_ms / ms,
-            "ms_warm_l2": median_ms(kernel),
+            "profiler_ms": prof_ms,
+            "profiler_over_events": prof_ms / ms if prof_ms else None,
+            "ms_one_launch": median_ms(kernel, warm, cpm, batch=1, reps=20, flush=flush),
+            "empty_kernel_ms": empty_ms,
+            "ms_one_launch_write_flush": median_ms(kernel, warm, cpm, batch=1, reps=20,
+                                                   flush=write_flush),
+            "ms_warm_l2": median_ms(kernel, warm, cpm),
+            "profiler_ms_warm_l2": profiled_ms(kernel, warm, "packed_scan_kernel"),
             "fits_in_l2": nbytes <= L2_BYTES,
+            "host_us_per_call": host_us_per_call(kernel, inputs),
         }
         shapes[f"{L}x{T}"] = rec
+        line("timing", f"{L}x{T}: kernel {ms:.5f} ms (events, inputs out of L2), "
+                       f"{prof_ms} ms (torch.profiler), bound {bound_ms:.5f} ms, "
+                       f"share {bound_ms / ms:.3f}")
+        line("timing", f"{L}x{T}: wrapper host time {rec['host_us_per_call']:.2f} us per call")
         line("timing", f"{L}x{T}: " + json.dumps(rec))
     return shapes
 
 
 def main() -> int:
     smi = phase_device()
-    phase_build()
+    resources = phase_build()
     max_err = phase_kernel()
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
@@ -445,6 +607,7 @@ def main() -> int:
         "shapes": shapes,
         "exact": max_err == 0,
         "card": smi,
+        "ptxas": resources["packed_scan_kernel"],
         "fleet_phases_s": fleet["phases"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

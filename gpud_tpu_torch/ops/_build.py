@@ -4,7 +4,9 @@ Every ``gpud_tpu_torch/csrc/*.cu`` is compiled for ``sm_90a`` into one
 shared library with a plain C interface, on first use, under
 ``<checkout>/build/kernels/``. The library's name carries a hash of the
 sources and flags, so a stale build is never loaded. There is no fallback:
-a missing or failing ``nvcc`` raises with the compiler's output.
+a missing or failing ``nvcc`` raises with the compiler's output. What
+``ptxas`` reports of each kernel (registers, spills, shared memory) is kept
+beside the library and read back by :func:`kernel_resources`.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -23,6 +26,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, spills and shared memory, to stderr
 )
 
 # C entry points and their ctypes signatures: pointers and the stream as
@@ -73,8 +77,54 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
+    _ptxas_log(so).write_text(proc.stderr)  # before the library appears
     os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     return so
+
+
+def _ptxas_log(so: Path) -> Path:
+    return so.with_suffix(".ptxas.txt")
+
+
+def _unqualified(mangled: str) -> str:
+    """The last name part of an Itanium-mangled function name
+    (``_ZN12_GLOBAL__N_14scanE...`` -> ``scan``); other names as they are."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while m := re.match(r"\d+", mangled[i:]):
+        n = int(m.group())
+        i += m.end()
+        name, i = mangled[i:i + n], i + n
+    return name
+
+
+def parse_ptxas(text: str) -> dict:
+    """Per kernel, from ``nvcc -Xptxas -v`` output: registers, spill stores
+    and loads, stack frame and static shared memory, in bytes."""
+    out, entry, props = {}, None, None
+    for ln in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            entry = out.setdefault(_unqualified(m.group(1)), {
+                "registers": 0, "spill_stores": 0, "spill_loads": 0,
+                "stack_bytes": 0, "smem_bytes": 0})
+        elif m := re.search(r"Function properties for (\S+)", ln):
+            props = out.get(_unqualified(m.group(1)))  # None: not a kernel
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", ln):
+            if props is not None:
+                props["stack_bytes"], props["spill_stores"], props["spill_loads"] = (
+                    int(g) for g in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry is not None:
+            entry["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", ln):
+                entry["smem_bytes"] = int(sm.group(1))
+    return out
+
+
+def kernel_resources() -> dict:
+    """What ptxas reported for each kernel of the current build."""
+    return parse_ptxas(_ptxas_log(build()).read_text())
 
 
 @functools.cache

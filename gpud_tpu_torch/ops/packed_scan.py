@@ -34,10 +34,13 @@ class PackedScan(NamedTuple):
 
 
 def _from_columns(out: torch.Tensor) -> PackedScan:
+    # the kernel writes currently_down as int64 0 or 1, so the low byte of
+    # that column (little-endian) is a valid bool: a view, with no second
+    # kernel launch
     return PackedScan(
         drops=out[:, COL_DROPS],
         flaps=out[:, COL_FLAPS],
-        currently_down=out[:, COL_DOWN] != 0,
+        currently_down=out.view(torch.bool)[:, 8 * COL_DOWN],
         samples=out[:, COL_SAMPLES],
         counter_delta=out[:, COL_DELTA],
     )

@@ -188,3 +188,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
     with pytest.raises(exc):
         scan_links_packed(st, ct, vl)
     assert scan_links_packed.launches == launches
+
+
+INT32_MIN, INT32_MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+
+
+def _extreme_counters(rng, pattern, L=9, T=48):
+    if pattern == "one step INT32_MIN -> INT32_MAX":
+        counters = np.full((L, T), INT32_MIN, np.int32)
+        for l, k in enumerate(rng.integers(1, T, L)):
+            counters[l, k:] = INT32_MAX
+    elif pattern == "alternating INT32_MIN, INT32_MAX":
+        counters = np.tile(np.where(np.arange(T) % 2 == 0, INT32_MIN, INT32_MAX), (L, 1))
+    else:  # random extremes and their neighbours
+        counters = rng.choice(np.array([INT32_MIN, INT32_MIN + 1, -1, 0, 1,
+                                        INT32_MAX - 1, INT32_MAX]), (L, T))
+    return counters.astype(np.int32)
+
+
+@pytest.mark.parametrize("prefix", [True, False])
+@pytest.mark.parametrize("pattern", ["one step INT32_MIN -> INT32_MAX",
+                                     "alternating INT32_MIN, INT32_MAX",
+                                     "random extremes"])
+def test_counter_delta_is_exact_in_int64_for_extreme_int32_steps(pattern, prefix):
+    """The port sums positive counter steps in int64, exact for any int32
+    counters: one step from INT32_MIN to INT32_MAX is 2^32 - 1, and a row's
+    sum passes 2^32. The Pallas kernel sums in f32, exact only below 2^24,
+    so it is no reference here: the plain version (and the CPU wrapper,
+    which runs it) is held against a numpy int64 sum."""
+    rng = np.random.default_rng(len(pattern) + prefix)
+    L, T = 9, 48
+    counters = _extreme_counters(rng, pattern, L, T)
+    states = rng.integers(-1, 3, (L, T), dtype=np.int8)
+    if prefix:
+        valid = np.arange(T)[None, :] < rng.integers(T // 2, T + 1, L)[:, None]
+    else:
+        valid = rng.random((L, T)) < 0.8
+    steps = np.diff(counters.astype(np.int64), axis=1)
+    want = np.where(valid[:, 1:] & valid[:, :-1], np.maximum(steps, 0), 0).sum(axis=1)
+    # the case is out of f32's exact range, where the Pallas sum would round
+    assert (want.astype(np.float32).astype(np.int64) != want).any()
+    ref = scan_links_packed_reference(*packed_from_numpy(states, counters, valid, "cpu"))
+    assert ref.counter_delta.dtype == torch.int64
+    np.testing.assert_array_equal(ref.counter_delta.numpy(), want)
+    np.testing.assert_array_equal(_port(states, counters, valid)["counter_delta"], want)
+
+
+def test_kernel_output_columns_read_back_as_the_scan_fields():
+    # the CUDA path reads the kernel's [L, 5] int64 output through views:
+    # currently_down is the low byte of column 2, which the kernel writes
+    # as 0 or 1, viewed as bool without a second kernel
+    from gpud_tpu_torch.ops.packed_scan import N_COLS, _from_columns
+
+    out = torch.tensor([[3, 1, 1, 40, 2**40], [0, 0, 0, 0, 0], [1, 2, 0, 7, 5]],
+                       dtype=torch.int64)
+    assert out.shape[1] == N_COLS
+    got = _from_columns(out)
+    assert got.currently_down.dtype == torch.bool
+    assert got.currently_down.tolist() == [True, False, False]
+    assert got.drops.tolist() == [3, 0, 1] and got.flaps.tolist() == [1, 0, 2]
+    assert got.samples.tolist() == [40, 0, 7]
+    assert got.counter_delta.tolist() == [2**40, 0, 5]
