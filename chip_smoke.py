@@ -19,7 +19,16 @@ Phases, each printing its own lines:
              seeded faults, scanned by ``fleet_scan`` on the default device;
              it must launch the kernel exactly once, classify every seeded
              fault, agree with ``device="cpu"``, and the CLI must agree too;
-5. timing  - device time per call of the kernel and of its plain version
+5. analytics - the analytics plane on the card (torch ops, no hand kernel):
+             ``robust_scores`` over a fleet of 16384 chips x 180 samples x 8
+             features with 16 seeded drifting chips (they must score top
+             16, and equal the numpy twin), ``entry()`` and the autoencoder
+             at batch 64 and 16384 against ``device="cpu"``, 60 training
+             steps (the loss must fall), one step against the CPU's,
+             ``dryrun_multichip(1)`` over NCCL; then device ms, host ms,
+             kernels per call and the top kernels of four calls beside
+             their bounds, printed as the ``{"analytics": ...}`` line;
+6. timing  - device time per call of the kernel and of its plain version
              at both shapes, beside the memory bound: CUDA events around
              batches of back-to-back calls on input copies that together
              exceed the L2, with a device spin that keeps the host's
@@ -27,7 +36,8 @@ Phases, each printing its own lines:
              from torch.profiler, one launch alone after an L2 flush, and
              the wrapper's host time per call.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last line
+The ``{"analytics": ...}`` line comes before the ``{"kernels": [...]}``
+record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
 """
@@ -58,6 +68,17 @@ from gpud_tpu_torch.fleet_scan import (  # noqa: E402
     fleet_scan,
     load_fleet_history,
 )
+from gpud_tpu_torch.entry import dryrun_multichip, entry  # noqa: E402
+from gpud_tpu_torch.models.anomaly import (  # noqa: E402
+    AEConfig,
+    AEParams,
+    ae_init,
+    ae_scores,
+    ae_train_step,
+    robust_scores,
+    windows_to_batch,
+)
+from gpud_tpu_torch.models.anomaly_np import robust_scores_np  # noqa: E402
 from gpud_tpu_torch.ops import _build  # noqa: E402
 from gpud_tpu_torch.ops.packed_scan import (  # noqa: E402
     packed_from_numpy,
@@ -422,7 +443,225 @@ def phase_fleet(workdir: Path, hosts: int = HOSTS, T: int = T_DAY) -> dict:
     return {"launches": launches, "phases": phases}
 
 
-# -- 5. timings ---------------------------------------------------------------------
+# -- 5. analytics ---------------------------------------------------------------
+
+# the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
+# in one call, T = 180 samples (the anomaly component's MAX_WINDOW_SAMPLES),
+# F = 8 features (N_FEATURES): 94 MB of float32, beyond the L2
+FLEET_CHIPS, FLEET_T, FLEET_F, DRIFTING = 16384, 180, 8, 16
+ENTRY_CFG = AEConfig(window=16, features=8, hidden=256, latent=32)
+
+
+def ae_flop_per_sample(cfg: AEConfig) -> int:
+    """Multiply-adds of the four products, two flop each (81 920 at the
+    entry width)."""
+    d, h, z = cfg.input_dim, cfg.hidden, cfg.latent
+    return 2 * (d * h + h * z + z * h + h * d)
+
+
+def ae_param_bytes(cfg: AEConfig) -> int:
+    d, h, z = cfg.input_dim, cfg.hidden, cfg.latent
+    return 4 * (d * h + h + h * z + z + z * h + h + h * d + d)
+
+
+def roofline(nbytes: int, flop: int) -> dict:
+    """Least time for the work: bytes over the HBM rate or float32 flop
+    over the non-tensor float32 peak, whichever is longer."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flop / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flop": flop}
+
+
+def kernel_profile(fn, args, calls=10) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn(*args)``: device
+    activities (kernels, memsets, copies) per call, their device ms per
+    call, and the three that take the most time. None where the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+    def us(e):  # self_device_time_total since torch 2.4, self_cuda_time_total before
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    if not rows:
+        return {"kernels_per_call": None, "profiler_ms": None, "top_kernels": None}
+    rows.sort(key=us, reverse=True)
+    return {
+        "kernels_per_call": sum(e.count for e in rows) / calls,
+        "profiler_ms": sum(us(e) for e in rows) / calls / 1e3,
+        "top_kernels": [{"name": e.key[:120], "ms_per_call": us(e) / calls / 1e3,
+                         "count_per_call": e.count / calls} for e in rows[:3]],
+    }
+
+
+def wall_ms(fn, args, reps=7) -> float:
+    """Median host milliseconds of one synchronised call: what a caller
+    that waits for the result pays, launches included."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def max_abs(a, b) -> float:
+    return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+
+
+def phase_analytics() -> dict:
+    out = {}
+    rng = np.random.default_rng(SEED + 2)
+    C, T, F = FLEET_CHIPS, FLEET_T, FLEET_F
+
+    # robust scorer over the fleet: 16 chips whose temperature ramps 40
+    # degrees over their last 16 samples (tests/test_jax_analytics.py's drift)
+    w = rng.normal(50.0, 0.5, size=(C, T, F)).astype(np.float32)
+    drifting = np.sort(rng.choice(C, DRIFTING, replace=False))
+    w[drifting, T - 16:, 0] += np.linspace(0, 40, 16, dtype=np.float32)
+    windows = torch.from_numpy(w).to("cuda")
+    scores, t_scores = sync_time(lambda: robust_scores(windows))
+    top = np.sort(torch.topk(scores, DRIFTING).indices.cpu().numpy())
+    if not np.array_equal(top, drifting):
+        raise AssertionError(f"top {DRIFTING} scores {top.tolist()} != drifting {drifting.tolist()}")
+    t0 = time.perf_counter()
+    ref = robust_scores_np(w)
+    t_np = time.perf_counter() - t0
+    got = scores.cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4,
+                               err_msg="robust_scores vs robust_scores_np")
+    out["robust_scores"] = {
+        "shape": [C, T, F], "first_call_s": t_scores, "numpy_twin_host_s": t_np,
+        "max_abs_err_vs_numpy": float(np.abs(got - ref).max()),
+        "drifting_top": True, "min_drifting_score": float(got[drifting].min()),
+        "max_other_score": float(np.delete(got, drifting).max()),
+    }
+    line("analytics", f"robust_scores {C}x{T}x{F}: the {DRIFTING} drifting chips score top "
+                      f"{DRIFTING}; max |card - numpy twin| "
+                      f"{out['robust_scores']['max_abs_err_vs_numpy']:.3g} (rtol = atol = 1e-4)")
+
+    # entry() on the card against the same call on the CPU
+    fn, (params, batch) = entry()
+    _, (params_cpu, batch_cpu) = entry(device="cpu")
+    s64 = fn(params, batch)
+    np.testing.assert_allclose(s64.cpu().numpy(), fn(params_cpu, batch_cpu).numpy(),
+                               rtol=1e-5, atol=0, err_msg="ae_scores batch 64, card vs cpu")
+    fleet_batch = windows_to_batch(windows[:, -ENTRY_CFG.window:, :])
+    s_fleet = ae_scores(params, fleet_batch)
+    if s_fleet.shape != (C,) or not bool(torch.isfinite(s_fleet).all()):
+        raise AssertionError(f"fleet ae_scores: shape {tuple(s_fleet.shape)} or not finite")
+    # raw telemetry (about 50) makes large pre-activations, whose rounding
+    # to bf16 flips where the card's float32 sums differ from the CPU's in
+    # the last bit: on the CPU, float64-accumulated products moved these
+    # scores by up to 4.9e-4 relative, hence rtol 2e-3 here (1e-5 above,
+    # on the entry's N(0, 1) batch, where the same test moved them 7e-7)
+    s_fleet_cpu = ae_scores(params_cpu, fleet_batch.cpu())
+    np.testing.assert_allclose(s_fleet.cpu().numpy(), s_fleet_cpu.numpy(), rtol=2e-3,
+                               atol=0, err_msg="ae_scores batch 16384, card vs cpu")
+    rel = lambda a, b: ((a.cpu() - b) / b).abs()  # noqa: E731
+    out["entry"] = {
+        "batch": list(batch.shape), "fleet_batch": list(fleet_batch.shape),
+        "max_rel_err_vs_cpu_b64": float(rel(s64, fn(params_cpu, batch_cpu)).max()),
+        "max_rel_err_vs_cpu_fleet": float(rel(s_fleet, s_fleet_cpu).max()),
+        "median_rel_err_vs_cpu_fleet": float(rel(s_fleet, s_fleet_cpu).median()),
+    }
+    line("analytics", f"entry(): ae_scores equal device='cpu' at batch 64 (max rel "
+                      f"{out['entry']['max_rel_err_vs_cpu_b64']:.3g}, rtol 1e-5) and at batch "
+                      f"{C} (max rel {out['entry']['max_rel_err_vs_cpu_fleet']:.3g}, rtol 2e-3)")
+
+    # 60 steps at entry width, lr 1e-2: the loss falls and a x8 sample stands out
+    p, losses = params, []
+    for _ in range(60):
+        p, loss = ae_train_step(p, batch, lr=1e-2)
+        losses.append(float(loss))
+    anomalous = batch.clone()
+    anomalous[0] *= 8.0
+    sc = ae_scores(p, anomalous).cpu().numpy()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"60 steps: loss {losses[0]} -> {losses[-1]} did not fall")
+    if not sc[0] > 2 * np.median(sc):
+        raise AssertionError(f"x8 sample scores {sc[0]}, median {np.median(sc)}")
+    # one step on the card against one on the CPU, from the same parameters
+    new, loss = ae_train_step(params, batch, lr=1e-3)
+    new_cpu, loss_cpu = ae_train_step(params_cpu, batch_cpu, lr=1e-3)
+    perr = max(max_abs(a, b) for a, b in zip(new, new_cpu))
+    if perr > 1e-6:
+        raise AssertionError(f"train step: card params differ from cpu by {perr}")
+    np.testing.assert_allclose(float(loss), float(loss_cpu), rtol=1e-5, atol=0,
+                               err_msg="train step loss, card vs cpu")
+    out["train"] = {"loss_first": losses[0], "loss_60": losses[-1],
+                    "x8_score_over_median": float(sc[0] / np.median(sc)),
+                    "step_max_abs_err_vs_cpu": perr}
+    line("analytics", f"60 steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}; x8 sample "
+                      f"{out['train']['x8_score_over_median']:.1f} x the median; one step "
+                      f"within {perr:.3g} of the cpu's")
+
+    # the multichip dry run on one card, over NCCL
+    res, t_dry = sync_time(lambda: dryrun_multichip(1))
+    cfg1 = AEConfig(window=4, features=8, hidden=16, latent=8)
+    p1 = ae_init(cfg1, torch.Generator().manual_seed(0), device="cpu")
+    w1 = np.random.default_rng(0).normal(size=(4, 4, 8)).astype(np.float32)
+    new1, loss1 = ae_train_step(p1, windows_to_batch(torch.from_numpy(w1)))
+    derr = max(max_abs(res["params"][n], t) for n, t in zip(AEParams._fields, new1))
+    if derr > 1e-6 or abs(res["loss"] - float(loss1)) > 1e-6 or res["mesh"] != (1, 1):
+        raise AssertionError(f"dryrun_multichip(1): mesh {res['mesh']}, loss {res['loss']} "
+                             f"vs {float(loss1)}, params off by {derr}")
+    out["dryrun_multichip_1"] = {"seconds": t_dry, "summary": res["summary"],
+                                 "loss": res["loss"], "params_max_abs_err_vs_cpu": derr}
+    line("analytics", f"dryrun_multichip(1) over NCCL: {t_dry:.1f} s, {res['summary']}, "
+                      f"step within {derr:.3g} of the cpu's")
+
+    # device time per call, beside the bound
+    cpm = spin_cycles_per_ms()
+    flop = ae_flop_per_sample(ENTRY_CFG)
+    pbytes, d = ae_param_bytes(ENTRY_CFG), ENTRY_CFG.input_dim
+    calls = {
+        f"robust_scores {C}x{T}x{F}": (
+            robust_scores, (windows,), roofline(C * T * F * 4 + C * 4, 0),
+            "input read once, scores written once, over 3.35 TB/s"),
+        "ae_scores batch 64": (
+            ae_scores, (params, batch), roofline(pbytes + 64 * d * 4 + 64 * 4, 64 * flop),
+            "2 x B x 81920 flop over 67 TFLOP/s (float32, no tensor cores)"),
+        f"ae_scores batch {C}": (
+            ae_scores, (params, fleet_batch), roofline(pbytes + C * d * 4 + C * 4, C * flop),
+            "2 x B x 81920 flop over 67 TFLOP/s (float32, no tensor cores)"),
+        "ae_train_step batch 64": (
+            ae_train_step, (params, batch), roofline(2 * pbytes + 64 * d * 4 + 4, 3 * 64 * flop),
+            "3 x 2 x B x 81920 flop (forward, two backward products) over 67 TFLOP/s"),
+    }
+    timing = {}
+    for name, (f, args, bnd, basis) in calls.items():
+        prof = kernel_profile(f, args)
+        # a window queues at most about 800 launches behind the spin: past
+        # the stream's launch queue (about 1000) the host would wait on the
+        # device inside the window
+        per_call = prof["kernels_per_call"] or 100
+        calls_per_window = max(1, min(20, int(800 // per_call)))
+        ms = median_ms(f, [args], cpm, batch=calls_per_window)
+        rec = {"ms": ms, "calls_per_window": calls_per_window, "wall_ms": wall_ms(f, args),
+               **prof, **bnd, "bound_basis": basis, "share_of_bound": bnd["bound_ms"] / ms}
+        timing[name] = rec
+        line("analytics", f"{name}: {ms:.5f} ms device, {rec['wall_ms']:.4f} ms host wall, "
+                          f"{rec['kernels_per_call']} kernels/call, bound {bnd['bound_ms']:.6f} ms "
+                          f"({bnd['bound_by']}), share {rec['share_of_bound']:.4f}")
+    out["timing"] = timing
+    return out
+
+
+# -- 6. timings ---------------------------------------------------------------------
 
 # The device spins this long per timed call before the window opens (the
 # spin is doubled when it did not cover the host): the host's wrapper time
@@ -589,8 +828,10 @@ def main() -> int:
         fleet = phase_fleet(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    analytics = phase_analytics()
     shapes = phase_timing()
     day = shapes[f"4608x{T_DAY}"]
+    print(json.dumps({"analytics": {"card": smi, **analytics}}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "packed_scan",
         "route": "cuda",

@@ -2,8 +2,11 @@
 
 The package mirrors ``gpud_tpu``'s module names so each counterpart is easy
 to find: ``fleet_scan`` (the fleet-wide link-health scan), ``ops.window_scan``
-(the ragged scan and the health classes) and ``ops.packed_scan`` (the packed
-scan, whose CUDA kernel lives in ``csrc/packed_scan.cu``).
+(the ragged scan and the health classes), ``ops.packed_scan`` (the packed
+scan, whose CUDA kernel lives in ``csrc/packed_scan.cu``), ``models.anomaly``
+(the robust scorer and the telemetry autoencoder), ``parallel.fleet`` (the
+same analytics sharded over a device mesh) and ``entry`` (``entry()`` and
+``dryrun_multichip()``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; see
 :func:`gpud_tpu_torch.device.resolve_device`.

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+analytics against the numpy twin and against device="cpu", on the card.
 
 These tests need an NVIDIA GPU and nvcc, and skip elsewhere. The file
 imports no JAX, so it runs where only the port is installed:
@@ -10,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from gpud_tpu_torch import entry as torch_entry
+from gpud_tpu_torch.models import anomaly as torch_an
+from gpud_tpu_torch.models.anomaly_np import robust_scores_np
 from gpud_tpu_torch.ops.packed_scan import (
     packed_from_numpy,
     scan_links_packed,
@@ -104,3 +108,51 @@ def test_packed_scan_on_an_empty_fleet_launches_nothing(cuda_device):
     got = scan_links_packed(st, ct, vl)
     assert scan_links_packed.launches == before
     assert got.drops.shape == (0,) and got.drops.device.type == "cuda"
+
+
+# -- analytics: torch ops on the card (no hand kernel), against the CPU ------
+
+@pytest.mark.parametrize("shape, dtype", [((4, 64, 8), torch.float32),
+                                          ((1024, 180, 8), torch.float32),
+                                          ((64, 17, 7), torch.bfloat16)])
+def test_robust_scores_on_the_card_match_the_numpy_twin(cuda_device, shape, dtype):
+    rng = np.random.default_rng(shape[0])
+    w = rng.normal(50.0, 0.5, size=shape).astype(np.float32)
+    w[0, shape[1] - shape[1] // 4:, 0] += np.linspace(0, 40, shape[1] // 4)
+    x = torch.from_numpy(w).to(cuda_device, dtype)
+    got = torch_an.robust_scores(x)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), robust_scores_np(x.float().cpu().numpy()),
+                               rtol=1e-4, atol=1e-4)
+    assert int(got.argmax()) == 0
+
+
+def test_entry_on_the_card_matches_the_cpu(cuda_device):
+    fn, (params, batch) = torch_entry.entry()
+    assert batch.device.type == "cuda" and not torch.backends.cuda.matmul.allow_tf32
+    _, (params_cpu, batch_cpu) = torch_entry.entry(device="cpu")
+    np.testing.assert_allclose(fn(params, batch).cpu().numpy(),
+                               fn(params_cpu, batch_cpu).numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("lr", [1e-3, 1.0])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, lr):
+    _, (params, batch) = torch_entry.entry()
+    _, (params_cpu, batch_cpu) = torch_entry.entry(device="cpu")
+    new, loss = torch_an.ae_train_step(params, batch, lr=lr)
+    new_cpu, loss_cpu = torch_an.ae_train_step(params_cpu, batch_cpu, lr=lr)
+    assert float(loss) == pytest.approx(float(loss_cpu), rel=1e-5)
+    for a, b in zip(new, new_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6 if lr < 1 else 1e-4)
+
+
+def test_dryrun_multichip_on_one_card_over_nccl(cuda_device):
+    res = torch_entry.dryrun_multichip(1)
+    cfg = torch_an.AEConfig(4, 8, 16, 8)
+    params = torch_an.ae_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    w = np.random.default_rng(0).normal(size=(4, 4, 8)).astype(np.float32)
+    new, loss = torch_an.ae_train_step(params, torch_an.windows_to_batch(torch.from_numpy(w)))
+    assert res["mesh"] == (1, 1) and sum(res["summary"].values()) == 8
+    assert res["loss"] == pytest.approx(float(loss), abs=1e-6)
+    for name, want in zip(torch_an.AEParams._fields, new):
+        torch.testing.assert_close(res["params"][name], want, rtol=0, atol=1e-6)

@@ -3,6 +3,7 @@ or the JAX package, its entry points run on the card unless the caller asks
 for the CPU, and nothing on its device path falls back."""
 
 import ast
+import json
 import subprocess
 import sys
 import textwrap
@@ -12,9 +13,11 @@ import pytest
 import torch
 
 from gpud_tpu_torch import device as device_mod
+from gpud_tpu_torch import entry as torch_entry
 from gpud_tpu_torch import fleet_scan as torch_fs
 from gpud_tpu_torch.cli import build_parser
 from gpud_tpu_torch.ops.packed_scan import packed_from_numpy, scan_links_packed
+from gpud_tpu_torch.parallel.fleet import make_mesh
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
@@ -45,6 +48,7 @@ def test_importing_the_port_loads_no_jax_module():
         import json, sys
         before = set(sys.modules)
         import gpud_tpu_torch.fleet_scan, gpud_tpu_torch.cli
+        import gpud_tpu_torch.entry, gpud_tpu_torch.parallel.fleet
         new = sorted(m for m in set(sys.modules) - before
                      if m.split(".")[0] in ("jax", "jaxlib", "gpud_tpu"))
         print(json.dumps(new))
@@ -59,6 +63,44 @@ def test_fleet_scan_without_device_raises_when_there_is_no_card(monkeypatch, tmp
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_fs.fleet_scan([str(tmp_path / "none.db")])
+
+
+@pytest.mark.parametrize("call", [
+    lambda: torch_entry.entry(),
+    lambda: torch_entry.dryrun_multichip(1),
+    lambda: make_mesh(1),
+], ids=["entry", "dryrun_multichip", "make_mesh"])
+def test_analytics_entry_points_raise_without_a_card(monkeypatch, call):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_dryrun_multichip_on_the_card_needs_as_many_cards(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices, 1 present"):
+        torch_entry.dryrun_multichip(2)
+
+
+def test_importing_the_port_sets_no_precision_flag():
+    # the autoencoder's float32 products must stay float32: no TF32
+    code = textwrap.dedent("""
+        import json, torch
+        def flags():
+            return [torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32,
+                    torch.get_float32_matmul_precision()]
+        before = flags()
+        import gpud_tpu_torch.entry, gpud_tpu_torch.parallel.fleet, gpud_tpu_torch.cli
+        print(json.dumps([before, flags()]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    before, after = json.loads(proc.stdout)
+    assert after == before
+    assert after[0] is False and after[2] == "highest"
 
 
 @pytest.mark.parametrize("device", [None, "cuda", torch.device("cuda")])
@@ -101,6 +143,9 @@ def test_cpu_tensors_run_the_plain_version_without_a_launch(monkeypatch):
         ("gpud_tpu_torch/ops/packed_scan.py", "scan_links_packed"),
         ("gpud_tpu_torch/ops/_build.py", "build"),
         ("gpud_tpu_torch/ops/_build.py", "load_library"),
+        ("gpud_tpu_torch/entry.py", "entry"),
+        ("gpud_tpu_torch/entry.py", "dryrun_multichip"),
+        ("gpud_tpu_torch/parallel/fleet.py", "make_mesh"),
     ],
 )
 def test_device_path_has_no_fallback(module, function):
