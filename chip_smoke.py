@@ -19,7 +19,19 @@ Phases, each printing its own lines:
              seeded faults, scanned by ``fleet_scan`` on the default device;
              it must launch the kernel exactly once, classify every seeded
              fault, agree with ``device="cpu"``, and the CLI must agree too;
-5. analytics - the analytics plane on the card (torch ops, no hand kernel):
+5. adapter - the device adapter and the GPU components on the card: NVML
+             (``gpu/nvml.py`` through ``NVMLBackend``) against nvidia-smi
+             (name, UUID, PCI bus id, memory total, driver, enforced power
+             limit, volatile ECC, remapped rows exactly; temperature within
+             3 C; the NVLink links and which are active), the binding's
+             struct layouts and constants against the toolkit's nvml.h,
+             ``TorchBackend`` against NVML, ``scan()`` on the real card,
+             then six samples of the card's links (``gpu0/nvlink0`` injected
+             down in samples 3-4) through ``NVLinkStore`` into
+             ``fleet_scan``, which must launch the kernel once and agree
+             with ``NVLinkStore.scan`` and with ``device="cpu"``; printed as
+             the ``{"adapter": ...}`` line;
+6. analytics - the analytics plane on the card (torch ops, no hand kernel):
              ``robust_scores`` over a fleet of 16384 chips x 180 samples x 8
              features with 16 seeded drifting chips (they must score top
              16, and equal the numpy twin), ``entry()`` and the autoencoder
@@ -28,7 +40,7 @@ Phases, each printing its own lines:
              ``dryrun_multichip(1)`` over NCCL; then device ms, host ms,
              kernels per call and the top kernels of four calls beside
              their bounds, printed as the ``{"analytics": ...}`` line;
-6. timing  - device time per call of the kernel and of its plain version
+7. timing  - device time per call of the kernel and of its plain version
              at both shapes, beside the memory bound: CUDA events around
              batches of back-to-back calls on input copies that together
              exceed the L2, with a device spin that keeps the host's
@@ -36,7 +48,7 @@ Phases, each printing its own lines:
              from torch.profiler, one launch alone after an L2 flush, and
              the wrapper's host time per call.
 
-The ``{"analytics": ...}`` line comes before the ``{"kernels": [...]}``
+The ``{"adapter": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -44,8 +56,12 @@ exits non-zero without the ``ok`` line. Data comes from fixed seeds.
 
 from __future__ import annotations
 
+import ctypes
+import io
 import itertools
 import json
+import os
+import re
 import shutil
 import sqlite3
 import statistics
@@ -61,6 +77,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from gpud_tpu_torch import fleet_scan as fleet_scan_mod  # noqa: E402
+from gpud_tpu_torch.api.v1.types import HealthStateType  # noqa: E402
+from gpud_tpu_torch.components.base import FailureInjector  # noqa: E402
+from gpud_tpu_torch.components.gpu.nvlink_store import NVLinkStore  # noqa: E402
 from gpud_tpu_torch.fleet_scan import (  # noqa: E402
     MAX_STEPS,
     TABLE,
@@ -69,6 +89,8 @@ from gpud_tpu_torch.fleet_scan import (  # noqa: E402
     load_fleet_history,
 )
 from gpud_tpu_torch.entry import dryrun_multichip, entry  # noqa: E402
+from gpud_tpu_torch.gpu import instance as gpu_instance  # noqa: E402
+from gpud_tpu_torch.gpu import nvml as nvml_mod  # noqa: E402
 from gpud_tpu_torch.models.anomaly import (  # noqa: E402
     AEConfig,
     AEParams,
@@ -86,6 +108,8 @@ from gpud_tpu_torch.ops.packed_scan import (  # noqa: E402
     scan_links_packed_reference,
 )
 from gpud_tpu_torch.ops.window_scan import classify_links  # noqa: E402
+from gpud_tpu_torch.scan import scan as host_scan  # noqa: E402
+from gpud_tpu_torch.sqlite import DB  # noqa: E402
 
 SEED = 20260
 # one 256-GPU pod of 8-GPU HGX H100 hosts, 18 NVLink links per GPU
@@ -443,7 +467,324 @@ def phase_fleet(workdir: Path, hosts: int = HOSTS, T: int = T_DAY) -> dict:
     return {"launches": launches, "phases": phases}
 
 
-# -- 5. analytics ---------------------------------------------------------------
+# -- 5. the device adapter and the GPU components ---------------------------------
+
+# nvidia-smi's names for the fields NVML must reproduce exactly
+SMI_FIELDS = (
+    "name", "uuid", "pci.bus_id", "memory.total", "driver_version", "enforced.power.limit",
+    "ecc.errors.corrected.volatile.total", "ecc.errors.uncorrected.volatile.total",
+    "remapped_rows.correctable", "remapped_rows.uncorrectable", "remapped_rows.pending",
+    "remapped_rows.failure", "temperature.gpu",
+)
+TEMPERATURE_TOLERANCE_C = 3
+NVML_HEADER = Path("/usr/local/cuda/include/nvml.h")
+ADAPTER_SAMPLES, ADAPTER_DOWN = 6, (3, 4)  # samples are numbered from 1
+
+
+def smi(*args: str) -> str:
+    return subprocess.run(["nvidia-smi", *args], capture_output=True, text=True,
+                          timeout=60, check=True).stdout
+
+
+def smi_rows() -> list:
+    out = smi(f"--query-gpu={','.join(SMI_FIELDS)}", "--format=csv,noheader,nounits")
+    return [dict(zip(SMI_FIELDS, (v.strip() for v in row.split(","))))
+            for row in out.strip().splitlines()]
+
+
+def smi_nvlink(index: int) -> dict:
+    """link -> active, from ``nvidia-smi nvlink -s -i N``: a link line shows
+    its speed when active and ``<inactive>`` when not."""
+    links = {}
+    for m in re.finditer(r"Link (\d+): (.*)", smi("nvlink", "-s", "-i", str(index))):
+        links[int(m.group(1))] = "inactive" not in m.group(2).lower()
+    return links
+
+
+def absent(value: str) -> bool:
+    return value in ("[N/A]", "N/A", "[Not Supported]")
+
+
+def compare_with_smi(inst, devs: dict, tel: dict, rows: list) -> dict:
+    """NVML's fields against nvidia-smi's, GPU by GPU: exact, but for the
+    temperature. Where nvidia-smi shows no value, NVML must give none."""
+    if len(rows) != len(devs):
+        raise AssertionError(f"nvidia-smi lists {len(rows)} GPUs, NVML {len(devs)}")
+    checked = {}
+    for i, row in enumerate(rows):
+        g, t = devs[i], tel[i]
+        unsupported = set(t.unsupported) | set(t.errors) | set(g.unsupported) | set(g.errors)
+        pending = "Yes" if t.memory_ecc_pending else "No"
+        failed = "Yes" if t.remapping_failed else "No"
+        pairs = {
+            "name": (g.name, "name"),
+            "uuid": (g.uuid, "uuid"),
+            "pci.bus_id": (g.pci_address, "pci_bus_id"),
+            "memory.total": (str(g.memory_total_bytes >> 20), "memory"),
+            "driver_version": (inst.driver_version(), None),
+            "enforced.power.limit": (f"{t.power_limit_w:.2f}", "power_limit"),
+            "ecc.errors.corrected.volatile.total": (str(t.memory_ecc_correctable), "ecc_volatile"),
+            "ecc.errors.uncorrected.volatile.total": (str(t.memory_ecc_uncorrectable),
+                                                      "ecc_volatile"),
+            "remapped_rows.correctable": (str(t.remapped_rows_correctable), "remapped_rows"),
+            "remapped_rows.uncorrectable": (str(t.remapped_rows_uncorrectable), "remapped_rows"),
+            "remapped_rows.pending": (pending, "remapped_rows"),
+            "remapped_rows.failure": (failed, "remapped_rows"),
+        }
+        for key, (ours, nvml_field) in pairs.items():
+            want = row[key]
+            if absent(want):
+                # no value from nvidia-smi: NVML must give none either
+                ok = ours in ("", "0", "No", "0.00") and (
+                    nvml_field is None or nvml_field in unsupported)
+                if ok:
+                    line("adapter", f"GPU {i} {key}: nvidia-smi {want}, NVML "
+                                    f"{g.errors.get(nvml_field) or t.errors.get(nvml_field) or 'not supported'}")
+            else:
+                ok = ours == want
+            if not ok:
+                raise AssertionError(f"GPU {i} {key}: NVML {ours!r}, nvidia-smi {want!r}")
+            checked[f"gpu{i}.{key}"] = want
+        dt = abs(float(row["temperature.gpu"]) - t.temperature_c)
+        if dt > TEMPERATURE_TOLERANCE_C:
+            raise AssertionError(f"GPU {i} temperature: NVML {t.temperature_c}, "
+                                 f"nvidia-smi {row['temperature.gpu']}")
+        checked[f"gpu{i}.temperature.gpu"] = row["temperature.gpu"]
+    return checked
+
+
+def layout_program(path: Path) -> str:
+    """C source that prints sizeof and offsetof of every struct the binding
+    declares, and the value of every constant it uses, as nvml.h has them."""
+    lines = ["#include <stddef.h>", "#include <stdio.h>", "#include <nvml.h>",
+             "int main(void) {"]
+    for cname, cls in nvml_mod.STRUCTS.items():
+        lines.append(f'  printf("sizeof {cname} %zu\\n", sizeof({cname}));')
+        for fname, _t in cls._fields_:
+            lines.append(f'  printf("offsetof {cname}.{fname} %zu\\n", '
+                         f"offsetof({cname}, {fname}));")
+    for name in nvml_mod.CONSTANTS:
+        lines.append(f'  printf("const {name} %lld\\n", (long long)({name}));')
+    lines += ["  return 0;", "}"]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def check_layouts(workdir: Path) -> dict:
+    """The ctypes structs and constants against the toolkit's nvml.h."""
+    if not NVML_HEADER.is_file():
+        line("adapter", f"{NVML_HEADER} is absent: the struct layouts and constants "
+                        "were NOT checked against nvml.h")
+        return {"header": None, "checked": 0}
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        raise RuntimeError("nvml.h is present but no C compiler (cc, gcc) is on PATH")
+    src = layout_program(workdir / "nvml_layout.c")
+    exe = workdir / "nvml_layout"
+    proc = subprocess.run([cc, f"-I{NVML_HEADER.parent}", src, "-o", str(exe)],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode:
+        raise RuntimeError(f"{cc} failed on {src}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    got = {}
+    for row in subprocess.run([str(exe)], check=True, capture_output=True, text=True,
+                              timeout=60).stdout.splitlines():
+        kind, name, value = row.split()
+        got[(kind, name)] = int(value)
+    want = {}
+    for cname, cls in nvml_mod.STRUCTS.items():
+        want[("sizeof", cname)] = ctypes.sizeof(cls)
+        for fname, _t in cls._fields_:
+            want[("offsetof", f"{cname}.{fname}")] = getattr(cls, fname).offset
+    for name, value in nvml_mod.CONSTANTS.items():
+        want[("const", name)] = value
+    bad = {f"{k[0]} {k[1]}": (want[k], got.get(k)) for k in want if got.get(k) != want[k]}
+    if bad:
+        raise AssertionError(f"ctypes and nvml.h differ (ctypes, header): {bad}")
+    line("adapter", f"nvml.h ({NVML_HEADER}): {len(nvml_mod.STRUCTS)} structs, "
+                    f"{sum(1 for k in want if k[0] == 'offsetof')} field offsets and "
+                    f"{len(nvml_mod.CONSTANTS)} constants equal the ctypes binding's")
+    return {"header": str(NVML_HEADER), "checked": len(want)}
+
+
+def host_ms(fn, reps=5) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_scan(tel: dict, links: list, rows: list) -> dict:
+    """``scan()`` on the card: every ported component reports; a healthy
+    card shows what it must."""
+    buf = io.StringIO()
+    results = {r.component_name(): r for r in host_scan(out=buf)}
+    for row in buf.getvalue().splitlines():
+        if row.strip():
+            line("adapter", "scan | " + row)
+    names = {"accelerator-gpu-counts", "accelerator-gpu-temperature",
+             "accelerator-gpu-memory", "accelerator-gpu-power", "accelerator-gpu-nvlink"}
+    reported = {n: {"health": r.health_state_type(), "reason": r.summary()}
+                for n, r in results.items()}
+    if not links:
+        # no link state at all: the component must say it is not supported
+        if "accelerator-gpu-nvlink" in results or not re.search(
+                r"accelerator-gpu-nvlink\s+-\s+not supported", buf.getvalue()):
+            raise AssertionError("NVML reports no link state, yet the NVLink check ran")
+        names.discard("accelerator-gpu-nvlink")
+        reported["accelerator-gpu-nvlink"] = {"health": None, "reason": "not supported"}
+    if not names <= set(results):
+        raise AssertionError(f"components without a result: {sorted(names - set(results))}")
+    hot = [t.temperature_c for t in tel.values() if t.temperature_c >= 85.0]
+    if hot or results["accelerator-gpu-temperature"].health_state_type() != HealthStateType.HEALTHY:
+        raise AssertionError(f"temperature: {reported['accelerator-gpu-temperature']}, {hot}")
+    counts = results["accelerator-gpu-counts"]
+    if counts.extra_info["found"] != counts.extra_info["expected"]:
+        raise AssertionError(f"GPU counts: {counts.extra_info}")
+    faulty = any(int(r["ecc.errors.uncorrected.volatile.total"] or 0) > 0
+                 for r in rows if not absent(r["ecc.errors.uncorrected.volatile.total"])) \
+        or any(r["remapped_rows.pending"] == "Yes" for r in rows)
+    if not faulty and results["accelerator-gpu-memory"].health_state_type() == HealthStateType.UNHEALTHY:
+        raise AssertionError(f"memory unhealthy on a clean card: {reported['accelerator-gpu-memory']}")
+    if links:
+        reason = results["accelerator-gpu-nvlink"].summary()
+        inactive = sorted(ln.name for ln in links if ln.state != gpu_instance.LinkState.UP)
+        named = sorted(set(re.findall(r"gpu\d+/nvlink\d+", reason)))
+        if named != inactive:
+            raise AssertionError(f"NVLink reason names {named}, NVML reports inactive {inactive}")
+        if not inactive and not reason.startswith(f"all {len(links)}/"):
+            raise AssertionError(f"NVLink reason {reason!r} with every link active")
+    return reported
+
+
+def store_into_fleet_scan(workdir: Path, base, window: float = 3600.0) -> dict:
+    """Six one-minute samples of the card's links, ``gpu0/nvlink0`` injected
+    down in samples 3-4, through ``NVLinkStore`` into ``fleet_scan``."""
+    source = "nvml"
+    if not base.nvlink_links():
+        source = "mock"
+        line("adapter", "NVML reports no NVLink link state on this card: the store takes "
+                        "MockBackend's links (same kernel, same card)")
+        base = gpu_instance.MockBackend(accelerator_type=f"h100-sxm-{len(base.devices())}")
+    inj = FailureInjector()
+    inst = gpu_instance.InjectedInstance(base, inj)
+    db_path = workdir / "nvlink_host.db"
+    db = DB(str(db_path))
+    store = NVLinkStore(db)
+    now = float(int(time.time()))
+    store.time_now_fn = lambda: now
+    for k in range(1, ADAPTER_SAMPLES + 1):
+        inj.nvlink_links_down = ["gpu0/nvlink0"] if k in ADAPTER_DOWN else []
+        store.insert_snapshot(inst.nvlink_links(), ts=now - STEP_SECONDS * (ADAPTER_SAMPLES - k))
+    ref = store.scan(window)
+    db.close()
+
+    captured = []
+    real = fleet_scan_mod.scan_links_packed
+
+    def recording(*args):
+        out = real(*args)
+        captured.append(out)
+        return out
+
+    scan_links_packed.launches = 0
+    fleet_scan_mod.scan_links_packed = recording
+    try:
+        res = fleet_scan([str(db_path)], window_seconds=window, now=now)
+    finally:
+        fleet_scan_mod.scan_links_packed = real
+    launches = scan_links_packed.launches
+    if launches != 1:
+        raise AssertionError(f"fleet_scan over the NVLink store launched the kernel {launches} times")
+    names = load_fleet_history([str(db_path)], window, now=now)[0]
+    got = {f: getattr(captured[0], f).cpu().tolist() for f in captured[0]._fields}
+    host = db_path.stem + "/"
+    mismatches = []
+    for i, name in enumerate(names):
+        r = ref.links[name[len(host):]]
+        ours = (got["drops"][i], got["flaps"][i], bool(got["currently_down"][i]),
+                got["samples"][i], got["counter_delta"][i])
+        want = (r.drops, r.flaps, r.currently_down, r.samples, r.crc_delta)
+        if ours != want:
+            mismatches.append((name, ours, want))
+    if mismatches or len(names) != len(ref.links):
+        raise AssertionError(f"fleet_scan vs NVLinkStore.scan: {mismatches[:5]}, "
+                             f"{len(names)} vs {len(ref.links)} links")
+    flapped = ref.links["gpu0/nvlink0"]
+    if (flapped.drops, flapped.flaps, flapped.currently_down) != (1, 1, False):
+        raise AssertionError(f"gpu0/nvlink0: {flapped}")
+    cpu = fleet_scan([str(db_path)], window_seconds=window, now=now, device="cpu")
+    if cpu["links"] != res["links"]:
+        raise AssertionError("fleet_scan classes differ between the card and device='cpu'")
+    line("adapter", f"NVLinkStore ({source} links): {ADAPTER_SAMPLES} samples, "
+                    f"{len(names)} links -> fleet_scan: {launches} launch, {res['summary']}; "
+                    "drops, flaps, currently-down, samples and CRC deltas equal "
+                    "NVLinkStore.scan; classes equal device='cpu'")
+    return {"nvlink_source": source, "links": len(names), "launches": launches,
+            "summary": res["summary"], "gpu0/nvlink0": res["links"][host + "gpu0/nvlink0"]}
+
+
+def phase_adapter(workdir: Path) -> dict:
+    t_phase = time.perf_counter()
+    for env in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
+        os.environ.pop(env, None)
+    t0 = time.perf_counter()
+    inst = gpu_instance.new_instance()
+    t_open = (time.perf_counter() - t0) * 1e3
+    if not isinstance(inst, gpu_instance.NVMLBackend) or not inst.gpu_lib_exists():
+        raise RuntimeError(f"new_instance() gave {type(inst).__name__}, "
+                           f"init error {inst.init_error()!r}")
+    devs, tel, links = inst.devices(), inst.telemetry(), inst.nvlink_links()
+    t_sample = host_ms(lambda: (inst.telemetry(), inst.nvlink_links()))
+    line("adapter", f"NVMLBackend: {inst.product_name()}, {inst.accelerator_type()}, driver "
+                    f"{inst.driver_version()}, CUDA {inst.runtime_version()}; open {t_open:.3f} ms, "
+                    f"one sample (telemetry + links) {t_sample:.3f} ms host")
+    for gid, t in sorted(tel.items()):
+        line("adapter", f"gpu{gid}: {t.temperature_c:.0f} C (memory {t.memory_temperature_c:.0f} C), "
+                        f"{t.power_w:.1f} / {t.power_limit_w:.2f} W, SM {t.clock_mhz:.0f} MHz, "
+                        f"util {t.duty_cycle_pct:.0f} %, ECC volatile {t.memory_ecc_correctable}/"
+                        f"{t.memory_ecc_uncorrectable}, reasons {t.clock_event_reasons:#x}; "
+                        f"unsupported {sorted(set(t.unsupported))}, errors {t.errors}")
+    rows = smi_rows()
+    checked = compare_with_smi(inst, devs, tel, rows)
+    line("adapter", f"NVML equals nvidia-smi on {len(checked)} fields "
+                    f"(temperature within {TEMPERATURE_TOLERANCE_C} C)")
+    nvlink = {}
+    for gid in sorted(devs):
+        ours = {ln.link_id: ln.state == gpu_instance.LinkState.UP
+                for ln in links if ln.gpu_id == gid}
+        theirs = smi_nvlink(gid)
+        if ours != theirs:
+            raise AssertionError(f"GPU {gid} NVLink: NVML {ours}, nvidia-smi {theirs}")
+        nvlink[f"gpu{gid}"] = {"links": len(ours), "active": sum(ours.values())}
+    line("adapter", f"NVLink equals nvidia-smi nvlink -s: {nvlink}")
+    layouts = check_layouts(workdir)
+
+    os.environ[gpu_instance.ENV_USE_TORCH] = "1"
+    try:
+        tb = gpu_instance.new_instance()
+    finally:
+        del os.environ[gpu_instance.ENV_USE_TORCH]
+    tdevs = tb.devices()
+    if not isinstance(tb, gpu_instance.TorchBackend) or \
+            [g.name for _i, g in sorted(tdevs.items())] != [g.name for _i, g in sorted(devs.items())]:
+        raise AssertionError(f"TorchBackend {type(tb).__name__}: {tdevs} against NVML {devs}")
+    line("adapter", f"TorchBackend: {len(tdevs)} device(s), names equal NVML's")
+
+    components = check_scan(tel, links, rows)
+    store = store_into_fleet_scan(workdir, inst)
+    rec = {"backend": type(inst).__name__, "product": inst.product_name(),
+           "accelerator_type": inst.accelerator_type(), "driver": inst.driver_version(),
+           "cuda": inst.runtime_version(), "open_ms": t_open, "sample_ms": t_sample,
+           "smi_fields_equal": len(checked), "nvlink": nvlink, "layouts": layouts,
+           "torch_backend_devices": len(tdevs), "components": components, **store,
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"adapter": rec}), flush=True)
+    return rec
+
+
+# -- 6. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
 # in one call, T = 180 samples (the anomaly component's MAX_WINDOW_SAMPLES),
@@ -661,7 +1002,7 @@ def phase_analytics() -> dict:
     return out
 
 
-# -- 6. timings ---------------------------------------------------------------------
+# -- 7. timings ---------------------------------------------------------------------
 
 # The device spins this long per timed call before the window opens (the
 # spin is doubled when it did not cover the host): the host's wrapper time
@@ -826,6 +1167,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dbs_", dir=build_dir))
     try:
         fleet = phase_fleet(workdir)
+        adapter = phase_adapter(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()
@@ -838,6 +1180,7 @@ def main() -> int:
         "source": "gpud_tpu_torch/csrc/packed_scan.cu",
         "replaces": "gpud_tpu/ops/pallas_scan.py:48",
         "launches": fleet["launches"],
+        "launches_by_path": {"fleet": fleet["launches"], "adapter": adapter["launches"]},
         "max_abs_err": max_err,
         "ms": day["ms"],
         "plain_ms": day["plain_ms"],

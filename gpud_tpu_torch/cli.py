@@ -1,5 +1,9 @@
 """Command line of the PyTorch/CUDA port.
 
+``python -m gpud_tpu_torch scan [--accelerator-type T] [--strict] [--json]``
+checks this host's GPUs once (through NVML, or the mock backend under
+``TPUD_GPU_MOCK_ALL_SUCCESS=1``) and prints the check table of ``tpud scan``.
+
 ``python -m gpud_tpu_torch fleet-scan DB... [--window S] [--flap-threshold N]
 [--crc-threshold N] [--json] [--device cuda|cpu]`` prints what
 ``tpud fleet-scan`` prints. The scan runs on the card unless ``--device cpu``.
@@ -8,9 +12,32 @@
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import logging
+import sys
 from typing import List, Optional
+
+
+def cmd_scan(args) -> int:
+    """One-shot health scan of this host's GPUs (gpud_tpu_torch/scan.py)."""
+    from gpud_tpu_torch.api.v1.types import HealthStateType
+    from gpud_tpu_torch.scan import scan
+
+    sink = io.StringIO() if args.as_json else sys.stdout
+    results = scan(accelerator_type=args.accelerator_type, out=sink)
+    if args.as_json:
+        rows = [{
+            "component": r.component_name(),
+            "health": r.health_state_type(),
+            "reason": r.summary(),
+            "extra_info": dict(r.extra_info),
+            "repair_actions": list(r.suggested_actions.repair_actions)
+            if r.suggested_actions else [],
+        } for r in results]
+        print(json.dumps(rows, indent=2))
+    unhealthy = [r for r in results if r.health_state_type() != HealthStateType.HEALTHY]
+    return 1 if unhealthy and args.strict else 0
 
 
 def cmd_fleet_scan(args) -> int:
@@ -46,6 +73,14 @@ def build_parser() -> argparse.ArgumentParser:
         description="tpud's accelerator tools on an NVIDIA GPU",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    ps = sub.add_parser("scan", help="one-shot health scan of this host's GPUs")
+    ps.add_argument("--accelerator-type", default="",
+                    help="e.g. h100-sxm-8 (default: from the enumerated GPUs)")
+    ps.add_argument("--strict", action="store_true", help="exit 1 on any unhealthy check")
+    ps.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable results instead of the table")
+    ps.set_defaults(fn=cmd_scan)
 
     pfs = sub.add_parser(
         "fleet-scan",

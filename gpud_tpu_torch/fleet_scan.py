@@ -34,7 +34,7 @@ from gpud_tpu_torch.ops.window_scan import classify_links
 
 logger = logging.getLogger(__name__)
 
-TABLE = "tpud_ici_snapshots_v0_1"  # the ICIStore schema
+TABLE = "tpud_ici_snapshots_v0_1"  # the schema of components/gpu/nvlink_store.py
 TOMBSTONE_TABLE = "tpud_ici_tombstones_v0_1"
 
 DEFAULT_WINDOW_SECONDS = 3600.0

@@ -59,6 +59,38 @@ def test_importing_the_port_loads_no_jax_module():
     assert proc.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "gpud_tpu_torch.gpu.instance",
+    "gpud_tpu_torch.components.all",
+    "gpud_tpu_torch.scan",
+    "gpud_tpu_torch.cli",
+    "gpud_tpu_torch",
+])
+def test_the_daemon_path_loads_neither_torch_nor_jax(module):
+    # the daemon's modules keep torch (the CUDA runtime) off its import path
+    code = textwrap.dedent(f"""
+        import json, sys
+        before = set(sys.modules)
+        import {module}
+        new = sorted(m for m in set(sys.modules) - before
+                     if m.split(".")[0] in ("torch", "jax", "jaxlib", "gpud_tpu"))
+        print(json.dumps(new))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_resolve_device_is_still_a_package_attribute():
+    import gpud_tpu_torch
+
+    assert gpud_tpu_torch.resolve_device is device_mod.resolve_device
+    assert gpud_tpu_torch.__all__ == ["resolve_device"]
+    with pytest.raises(AttributeError):
+        gpud_tpu_torch.no_such_name  # noqa: B018
+
+
 def test_fleet_scan_without_device_raises_when_there_is_no_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
