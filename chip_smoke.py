@@ -31,7 +31,26 @@ Phases, each printing its own lines:
              ``fleet_scan``, which must launch the kernel once and agree
              with ``NVLinkStore.scan`` and with ``device="cpu"``; printed as
              the ``{"adapter": ...}`` line;
-6. analytics - the analytics plane on the card (torch ops, no hand kernel):
+6. health - the health checks of this slice on the card: the anomaly
+             check over a metrics store of one HGX host (8 GPUs x 180
+             one-minute samples x 7 features, GPU 5 drifting), scored with
+             the torch backend on the card and with numpy (the same GPU
+             flagged, scores within rtol = atol = 1e-4; ``auto`` resolves to
+             torch once CUDA is up), then its scan-mode burst of 8 live NVML
+             samples (its scores on the card held to numpy on the same
+             windows; its verdict printed, not gated); ``accelerator-gpu-processes`` must list this process
+             as a holder of /dev/nvidiaN; the runtime units' states; every
+             line of the Xid/SXid corpus (tests/torch_xid_corpus.py) alone
+             through watcher -> syncer -> SQLite event store ->
+             ``accelerator-gpu-error-kmsg`` (its entry's health and repair
+             actions), the whole corpus at once and in scan mode, a reboot
+             between an Xid 48 and its recurrence (HARDWARE_INSPECTION), an
+             Xid 74 opening the NVLink check's fast-poll window, set-healthy;
+             the machine's own /dev/kmsg where it may be read; host ms per
+             check() by backend, robust_scores' device ms at 8 x 180 x 7 and
+             the burst's NVML ms per sample; printed as the ``{"health": ...}``
+             line;
+7. analytics - the analytics plane on the card (torch ops, no hand kernel):
              ``robust_scores`` over a fleet of 16384 chips x 180 samples x 8
              features with 16 seeded drifting chips (they must score top
              16, and equal the numpy twin), ``entry()`` and the autoencoder
@@ -40,7 +59,7 @@ Phases, each printing its own lines:
              ``dryrun_multichip(1)`` over NCCL; then device ms, host ms,
              kernels per call and the top kernels of four calls beside
              their bounds, printed as the ``{"analytics": ...}`` line;
-7. timing  - device time per call of the kernel and of its plain version
+8. timing  - device time per call of the kernel and of its plain version
              at both shapes, beside the memory bound: CUDA events around
              batches of back-to-back calls on input copies that together
              exceed the L2, with a device spin that keeps the host's
@@ -48,7 +67,7 @@ Phases, each printing its own lines:
              from torch.profiler, one launch alone after an L2 flush, and
              the wrapper's host time per call.
 
-The ``{"adapter": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
+The ``{"adapter": ...}``, ``{"health": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -57,6 +76,8 @@ exits non-zero without the ``ok`` line. Data comes from fixed seeds.
 from __future__ import annotations
 
 import ctypes
+import errno
+import importlib.util
 import io
 import itertools
 import json
@@ -78,9 +99,28 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from gpud_tpu_torch import fleet_scan as fleet_scan_mod  # noqa: E402
-from gpud_tpu_torch.api.v1.types import HealthStateType  # noqa: E402
-from gpud_tpu_torch.components.base import FailureInjector  # noqa: E402
+from gpud_tpu_torch import host as host_mod  # noqa: E402
+from gpud_tpu_torch.api.v1.types import (  # noqa: E402
+    Event,
+    EventType,
+    HealthStateType,
+    RepairActionType,
+)
+from gpud_tpu_torch.components.base import FailureInjector, TpudInstance  # noqa: E402
+from gpud_tpu_torch.components.gpu import anomaly as anomaly_mod  # noqa: E402
+from gpud_tpu_torch.components.gpu import catalog  # noqa: E402
+from gpud_tpu_torch.components.gpu.error_kmsg import GPUErrorKmsgComponent  # noqa: E402
+from gpud_tpu_torch.components.gpu.nvlink import GPUNVLinkComponent  # noqa: E402
 from gpud_tpu_torch.components.gpu.nvlink_store import NVLinkStore  # noqa: E402
+from gpud_tpu_torch.components.gpu.runtime import (  # noqa: E402
+    GPUProcessesComponent,
+    GPURuntimeComponent,
+)
+from gpud_tpu_torch.eventstore import EventStore  # noqa: E402
+from gpud_tpu_torch.kmsg import watcher as kmsg_watcher  # noqa: E402
+from gpud_tpu_torch.kmsg.syncer import SharedWatcher  # noqa: E402
+from gpud_tpu_torch.kmsg.writer import KmsgWriter  # noqa: E402
+from gpud_tpu_torch.metrics.store import MetricsStore  # noqa: E402
 from gpud_tpu_torch.fleet_scan import (  # noqa: E402
     MAX_STEPS,
     TABLE,
@@ -784,7 +824,395 @@ def phase_adapter(workdir: Path) -> dict:
     return rec
 
 
-# -- 6. analytics ---------------------------------------------------------------
+# -- 6. health ---------------------------------------------------------------------
+
+# one HGX host: 8 GPUs x the anomaly component's 180 one-minute samples x its
+# 7 features; GPU 5's temperature ramps 40 C over its last 16 samples
+# (tests/test_anomaly_component.py's drift)
+HEALTH_GPUS, HEALTH_DRIFT_GPU, HEALTH_DRIFT_SAMPLES = 8, 5, 16
+# an idle H100's telemetry, one value per feature of FEATURE_METRICS, and
+# the noise around it
+HEALTH_BASE = (45.0, 40.0, 120.0, 30.0, 20.0, 1980.0, 2.0e10)
+HEALTH_NOISE = (0.5, 0.5, 5.0, 3.0, 3.0, 15.0, 1.0e8)
+KMSG_WAIT_S = 30.0
+
+
+def load_corpus():
+    """tests/torch_xid_corpus.py: organic lines for every catalog entry and
+    lines that must match nothing (plain data, importing nothing)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_xid_corpus", ROOT / "tests" / "torch_xid_corpus.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def telemetry_rows(now: float) -> list:
+    rng = np.random.default_rng(SEED + 3)
+    G, T = HEALTH_GPUS, anomaly_mod.MAX_WINDOW_SAMPLES
+    F = len(anomaly_mod.FEATURE_METRICS)
+    v = np.asarray(HEALTH_BASE) + rng.normal(size=(G, T, F)) * np.asarray(HEALTH_NOISE)
+    v[HEALTH_DRIFT_GPU, T - HEALTH_DRIFT_SAMPLES:, 0] += np.linspace(0, 40, HEALTH_DRIFT_SAMPLES)
+    return [(now - (T - t) * STEP_SECONDS, name, {"component": "telemetry", "gpu": str(g)},
+             float(v[g, t, f]))
+            for t in range(T) for g in range(G)
+            for f, name in enumerate(anomaly_mod.FEATURE_METRICS)]
+
+
+def drifting(cr) -> list:
+    return sorted(k[3:-6] for k, v in cr.extra_info.items()
+                  if k.endswith("_score") and float(v) >= anomaly_mod.DEFAULT_SCORE_DEGRADED)
+
+
+def health_anomaly(workdir: Path, inst, cpm: float) -> dict:
+    """The daemon's anomaly check over a metrics store, on the card and
+    with numpy; then robust_scores' device time at that shape."""
+    now = float(int(time.time()))
+    db = DB(str(workdir / "metrics.db"))
+    try:
+        MetricsStore(db).record(telemetry_rows(now))
+        tinst = TpudInstance(gpu_instance=inst, db_rw=db, event_store=EventStore(db))
+        comps = {}
+        for backend in ("torch", "numpy", "auto"):
+            c = anomaly_mod.GPUAnomalyComponent(tinst)
+            c.backend, c.time_now_fn = backend, (lambda: now)
+            comps[backend] = c
+        results = {b: c.check() for b, c in comps.items()}
+        for b, cr in results.items():
+            line("health", f"anomaly check, backend {b}: {cr.health}, {cr.reason}; "
+                           f"resolved {cr.extra_info.get('backend')}")
+        want = [str(HEALTH_DRIFT_GPU)]
+        if any(cr.health != HealthStateType.DEGRADED or drifting(cr) != want
+               for cr in results.values()):
+            raise AssertionError(f"anomaly at 8 x 180 x 7: {[(b, cr.health, drifting(cr)) for b, cr in results.items()]}")
+        if results["auto"].extra_info["backend"] != "torch":
+            raise AssertionError("auto did not resolve to torch with CUDA initialised")
+        gpus, w = comps["numpy"]._build_windows(now)
+        if w.shape != (HEALTH_GPUS, anomaly_mod.MAX_WINDOW_SAMPLES, len(anomaly_mod.FEATURE_METRICS)):
+            raise AssertionError(f"windows {w.shape}")
+        s_torch, used = anomaly_mod._score_windows(w, "torch")
+        s_np, _ = anomaly_mod._score_windows(w, "numpy")
+        if used != "torch" or anomaly_mod._score_windows(w, "auto")[1] != "torch":
+            raise AssertionError(f"the torch backend resolved to {used}")
+        np.testing.assert_allclose(s_torch, s_np, rtol=1e-4, atol=1e-4,
+                                   err_msg="anomaly scores, torch on the card vs numpy")
+        err = float(np.abs(s_torch - s_np).max())
+        check_ms = {b: host_ms(comps[b].check) for b in ("torch", "numpy")}
+        build_ms = host_ms(lambda: comps["numpy"]._build_windows(now))
+        score_ms = {b: host_ms(lambda b=b: anomaly_mod._score_windows(w, b)) for b in ("torch", "numpy")}
+        x = torch.from_numpy(w).cuda()
+        prof = kernel_profile(robust_scores, (x,))
+        per_call = prof["kernels_per_call"] or 100
+        cpw = max(1, min(20, int(800 // per_call)))
+        G, T, F = w.shape
+        bnd = roofline(G * T * F * 4 + G * 4, 0)
+        dev = {"ms": median_ms(robust_scores, [(x,)], cpm, batch=cpw), "calls_per_window": cpw,
+               "wall_ms": wall_ms(robust_scores, (x,)), **prof, **bnd}
+        dev["share_of_bound"] = bnd["bound_ms"] / dev["ms"]
+        line("health", f"anomaly 8x180x7: GPU {HEALTH_DRIFT_GPU} flagged by torch (card) and numpy, "
+                       f"scores within {err:.3g} (rtol = atol = 1e-4); one check() "
+                       f"{check_ms['torch']:.3f} ms host (torch), {check_ms['numpy']:.3f} ms (numpy); "
+                       f"store read {build_ms:.3f} ms, scoring {score_ms['torch']:.3f} / "
+                       f"{score_ms['numpy']:.3f} ms")
+        line("health", f"robust_scores 8x180x7 on the card: {dev['ms']:.5f} ms device, "
+                       f"{dev['wall_ms']:.4f} ms host wall, {dev['kernels_per_call']} kernels/call, "
+                       f"bound {bnd['bound_ms']:.7f} ms ({bnd['bound_by']})")
+    finally:
+        db.close()
+
+    return {"shape": list(w.shape), "drifting_gpu": HEALTH_DRIFT_GPU,
+            "backends": {b: {"health": r.health, "resolved": r.extra_info.get("backend"),
+                             "flagged": drifting(r)} for b, r in results.items()},
+            "max_abs_err_torch_vs_numpy": err, "check_host_ms": check_ms,
+            "store_read_host_ms": build_ms, "score_host_ms": score_ms,
+            "robust_scores": dev}
+
+
+def health_burst(inst) -> dict:
+    """Scan mode's anomaly check: a burst of 8 live NVML samples, scored on
+    the card. The gate is what the code computes: the component scored the
+    burst's [G, 8, 7] windows with the torch backend, and those scores agree
+    with the numpy twin on the same windows. The verdict itself is printed
+    and not gated: it depends on what the live card read (PERF.md §6)."""
+    sample_ms, scored = [], []
+    real_tel, real_score = inst.telemetry, anomaly_mod._score_windows
+
+    def timed():
+        t0 = time.perf_counter()
+        out = real_tel()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def captured(windows, backend, device=None):
+        scores, used = real_score(windows, backend, device)
+        scored.append((windows, scores, used))
+        return scores, used
+
+    inst.telemetry, anomaly_mod._score_windows = timed, captured
+    try:
+        burst = anomaly_mod.GPUAnomalyComponent(TpudInstance(gpu_instance=inst))
+        burst.backend = "torch"
+        t0 = time.perf_counter()
+        cr = burst.check()
+        burst_s = time.perf_counter() - t0
+    finally:
+        del inst.telemetry
+        anomaly_mod._score_windows = real_score
+    line("health", f"burst (scan mode), backend torch: {cr.health}, {cr.reason}; {len(sample_ms)} "
+                   f"NVML samples, {statistics.median(sample_ms):.3f} ms median "
+                   f"({min(sample_ms):.3f}-{max(sample_ms):.3f}); check {burst_s:.3f} s with "
+                   f"{burst.burst_interval_seconds} s between samples; {cr.extra_info}")
+    shape = (len(inst.devices()), anomaly_mod.MIN_SAMPLES, len(anomaly_mod.FEATURE_METRICS))
+    if len(scored) != 1 or scored[0][0].shape != shape or scored[0][2] != "torch" \
+            or cr.extra_info.get("backend") != "torch" \
+            or cr.extra_info.get("samples") != str(anomaly_mod.MIN_SAMPLES) \
+            or len(sample_ms) != anomaly_mod.MIN_SAMPLES:
+        raise AssertionError(f"burst: {len(scored)} scorings of "
+                             f"{[w.shape for w, _, _ in scored]} (want {shape}), "
+                             f"{len(sample_ms)} samples, {cr.extra_info}")
+    w, s_torch, _ = scored[0]
+    s_np = robust_scores_np(w)
+    np.testing.assert_allclose(s_torch, s_np, rtol=1e-4, atol=1e-4,
+                               err_msg="burst scores, torch on the card vs numpy")
+    flagged = bool((s_torch >= burst.score_degraded).any())
+    if (cr.health == HealthStateType.DEGRADED) != flagged:
+        raise AssertionError(f"burst: {cr.health} with scores {s_torch.tolist()}")
+    err = float(np.abs(s_torch - s_np).max())
+    line("health", f"burst scores {[round(float(x), 4) for x in s_torch]} on the card, within "
+                   f"{err:.3g} of numpy on the same windows (rtol = atol = 1e-4); verdict "
+                   f"{cr.health} (printed, not gated)")
+    if flagged:
+        for i in np.flatnonzero(s_torch >= burst.score_degraded):
+            line("health", f"burst gpu{i} samples by feature: {w[i].T.tolist()}")
+    return {"health": cr.health, "reason": cr.reason, "samples": len(sample_ms),
+            "nvml_sample_ms": sample_ms, "check_s": burst_s, "shape": list(w.shape),
+            "scores": s_torch.tolist(), "max_abs_err_torch_vs_numpy": err}
+
+
+def health_runtime(inst) -> dict:
+    tinst = TpudInstance(gpu_instance=inst)
+    procs = GPUProcessesComponent(tinst).check()
+    mine = procs.extra_info.get(str(os.getpid()), "")
+    line("health", f"processes: {procs.reason}; this process ({os.getpid()}) holds {mine or 'nothing'}")
+    if not re.search(r"/dev/nvidia\d", mine):
+        fds = sorted({os.readlink(f"/proc/self/fd/{fd}") for fd in os.listdir("/proc/self/fd")
+                      if os.path.islink(f"/proc/self/fd/{fd}")
+                      and os.readlink(f"/proc/self/fd/{fd}").startswith("/dev/")})
+        raise AssertionError(f"this process is not a holder of /dev/nvidiaN: its /dev fds {fds}")
+    rt = GPURuntimeComponent(tinst)
+    units = {u: rt._systemd_is_active(u) for u in rt.units}
+    cr = rt.check()
+    line("health", f"runtime: systemctl is-active {units}; {cr.health}, {cr.reason}")
+    if (cr.health == HealthStateType.UNHEALTHY) != ("failed" in units.values()):
+        raise AssertionError(f"runtime {cr.health} with units {units}")
+    return {"holder": mine, "holders": len(procs.extra_info), "processes_health": procs.health,
+            "units": units, "runtime_health": cr.health, "runtime_reason": cr.reason}
+
+
+def wait_for(cond, what: str) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > KMSG_WAIT_S:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_lines(inst, path: Path, lines: list, db_path: str = ":memory:"):
+    """``lines`` through a watcher thread on ``path`` → the component's
+    syncer → a SQLite event store → the component; returns the component
+    once every record was delivered."""
+    db = DB(db_path)
+    es = EventStore(db)
+    tinst = TpudInstance(gpu_instance=inst, event_store=es,
+                         reboot_event_store=host_mod.RebootEventStore(es))
+    comp = GPUErrorKmsgComponent(tinst)
+    path.write_text("")
+    writer = KmsgWriter(str(path))
+    for ln in lines:
+        writer.write(ln, priority=3)
+    delivered = []
+    w = kmsg_watcher.Watcher(lambda m: (comp.syncer.process(m), delivered.append(m)),
+                             path=str(path), from_now=False, poll_timeout_ms=20)
+    w.start()
+    try:
+        wait_for(lambda: len(delivered) == len(lines), f"{len(lines)} kmsg records")
+    finally:
+        w.close()
+    return comp, db
+
+
+def expected(name: str, gpu) -> tuple:
+    e = catalog.lookup(name)
+    acts = list(e.repair_actions)
+    return (HealthStateType.UNHEALTHY if e.critical else HealthStateType.DEGRADED,
+            f"{name}(GPU {gpu}) (x1)" if gpu is not None else f"{name} (x1)",
+            None if acts == [RepairActionType.IGNORE_NO_ACTION_REQUIRED] else acts)
+
+
+def health_xid(workdir: Path, inst) -> dict:
+    corpus = load_corpus()
+    bdf = catalog.bdf_map(inst.devices())
+    line("health", f"PCI map from NVML: {bdf or 'empty (NVML gives no PCI info)'}")
+    # every organic line alone, through the whole pipeline
+    per_line, kmsg_file = [], workdir / "kmsg"
+    for name, lines in corpus.ORGANIC.items():
+        for ln in lines:
+            comp, db = run_lines(inst, kmsg_file, [ln])
+            cr = comp.check()
+            got = (cr.health, cr.reason,
+                   cr.suggested_actions.repair_actions if cr.suggested_actions else None)
+            want = expected(name, catalog.match(ln, bdf).gpu_id)
+            evs = comp.events(0)
+            db.close()
+            if got != want or [e.name for e in evs] != [name]:
+                raise AssertionError(f"{ln!r}: {got}, events {[e.name for e in evs]}; want {want}")
+            per_line.append(name)
+    comp, db = run_lines(inst, kmsg_file, corpus.BENIGN)
+    benign = comp.check()
+    n_benign_events = len(comp.events(0))
+    db.close()
+    if benign.health != HealthStateType.HEALTHY or n_benign_events:
+        raise AssertionError(f"benign lines: {benign.health} {benign.reason}, {n_benign_events} events")
+    line("health", f"Xid/SXid corpus: {len(per_line)} organic lines of all {len(corpus.ORGANIC)} "
+                   f"catalog entries, each alone through watcher -> syncer -> event store -> "
+                   f"accelerator-gpu-error-kmsg, gave its entry's health and repair actions; "
+                   f"{len(corpus.BENIGN)} lines of other devices matched nothing")
+
+    # the whole corpus in one ring, and the same file read in scan mode
+    everything = [ln for lines in corpus.ORGANIC.values() for ln in lines] + corpus.BENIGN
+    comp, db = run_lines(inst, kmsg_file, everything, str(workdir / "xid.db"))
+    daemon = comp.check()
+    n_events = len(comp.events(0))
+    db.close()
+    old = os.environ.get(kmsg_watcher.ENV_KMSG_PATH)
+    os.environ[kmsg_watcher.ENV_KMSG_PATH] = str(kmsg_file)
+    try:
+        scan_cr = GPUErrorKmsgComponent(TpudInstance(gpu_instance=inst)).check()
+    finally:
+        if old is None:
+            del os.environ[kmsg_watcher.ENV_KMSG_PATH]
+        else:
+            os.environ[kmsg_watcher.ENV_KMSG_PATH] = old
+    if n_events != len(per_line) or daemon.health != HealthStateType.UNHEALTHY or \
+            (scan_cr.health, scan_cr.reason) != (daemon.health, daemon.reason):
+        raise AssertionError(f"whole corpus: {n_events} events, {daemon.health}; scan mode "
+                             f"{scan_cr.health} {scan_cr.reason!r} vs {daemon.reason!r}")
+    line("health", f"whole corpus in one ring: {n_events} events, {daemon.health}, repair "
+                   f"{daemon.suggested_actions.repair_actions}; scan mode "
+                   f"({kmsg_watcher.ENV_KMSG_PATH}) gives the same health and reason")
+
+    # a reboot between an Xid 48 (reboot threshold 1) and its recurrence,
+    # then an Xid 74, on a live watcher that follows the file as the
+    # daemon's does
+    db = DB(str(workdir / "escalation.db"))
+    es = EventStore(db)
+    tinst = TpudInstance(gpu_instance=inst, event_store=es,
+                         reboot_event_store=host_mod.RebootEventStore(es))
+    nvlink = GPUNVLinkComponent(tinst)
+    comp = GPUErrorKmsgComponent(tinst)
+    kmsg_file.write_text("")
+    shared = SharedWatcher(path=str(kmsg_file), from_now=False)
+    shared.register(comp.syncer)
+    shared.start()
+    writer = KmsgWriter(str(kmsg_file))
+    xid48 = corpus.ORGANIC["gpu_ecc_xid48"][0]
+    recur = xid48.replace("pid=2714", "pid=4242")
+    assert recur != xid48
+    steps, latency_ms = {}, []
+
+    def inject(ln):
+        n = len(comp.events(0))
+        writer.write(ln, priority=2)
+        latency_ms.append(wait_for(lambda: len(comp.events(0)) == n + 1, ln))
+
+    try:
+        inject(xid48)
+        steps["first"] = comp.check()
+        window_before = nvlink.poll_interval()
+        # an event's time is the boot time, read from /proc/uptime (10 ms
+        # steps), plus the record's offset: keep the reboot clear of both
+        time.sleep(0.1)
+        es.bucket(host_mod.REBOOT_COMPONENT).insert(Event(
+            component=host_mod.REBOOT_COMPONENT, time=time.time(), name=host_mod.EVENT_NAME_REBOOT,
+            type=EventType.WARNING, message="reboot between the two Xid 48 lines"))
+        steps["after reboot"] = comp.check()
+        time.sleep(0.1)
+        inject(recur)
+        steps["recurrence"] = comp.check()
+        inject(corpus.ORGANIC["gpu_nvlink_error"][0])
+        steps["Xid 74"] = comp.check()
+        window_after = nvlink.poll_interval()
+        time.sleep(0.1)
+        comp.set_healthy()
+        steps["set healthy"] = comp.check()
+    finally:
+        shared.close()
+        db.close()
+    for k, cr in steps.items():
+        line("health", f"escalation, {k}: {cr.health}, {cr.reason}, repair "
+                       f"{cr.suggested_actions.repair_actions if cr.suggested_actions else None}")
+    want = {
+        "first": (HealthStateType.UNHEALTHY, [RepairActionType.REBOOT_SYSTEM,
+                                              RepairActionType.HARDWARE_INSPECTION]),
+        "after reboot": (HealthStateType.HEALTHY, None),
+        "recurrence": (HealthStateType.UNHEALTHY, [RepairActionType.HARDWARE_INSPECTION]),
+        "Xid 74": (HealthStateType.UNHEALTHY, [RepairActionType.HARDWARE_INSPECTION]),
+        "set healthy": (HealthStateType.HEALTHY, None),
+    }
+    got = {k: (cr.health, cr.suggested_actions.repair_actions if cr.suggested_actions else None)
+           for k, cr in steps.items()}
+    if got != want or "recurred after 1 reboot(s)" not in steps["recurrence"].reason:
+        raise AssertionError(f"escalation: {got}")
+    if not window_after == nvlink.fast_poll_interval < window_before:
+        raise AssertionError(f"NVLink poll interval {window_before} -> {window_after} after Xid 74")
+    line("health", f"NVLink poll interval {window_before} s -> {window_after} s after the Xid 74 "
+                   f"line; kmsg write to stored event {statistics.median(latency_ms):.2f} ms median")
+
+    # the machine's own ring buffer
+    try:
+        fd = os.open(kmsg_watcher.DEFAULT_KMSG_PATH, os.O_RDONLY | os.O_NONBLOCK)
+        os.close(fd)
+        msgs = kmsg_watcher.read_all(kmsg_watcher.DEFAULT_KMSG_PATH)
+    except OSError as e:
+        dev = {"readable": False, "errno": errno.errorcode.get(e.errno, e.errno), "error": str(e)}
+        line("health", f"/dev/kmsg: not readable here ({dev['errno']}: {e.strerror})")
+    else:
+        hits = [(m.message, hit.entry.name, hit.gpu_id) for m in msgs
+                if (hit := catalog.match(m.message, bdf)) is not None]
+        dev = {"readable": True, "lines": len(msgs), "matches": hits}
+        line("health", f"/dev/kmsg: {len(msgs)} lines, {len(hits)} catalog matches")
+        for h in hits:
+            line("health", f"/dev/kmsg match: {h[1]} (GPU {h[2]}): {h[0]}")
+    return {"entries": len(corpus.ORGANIC), "organic_lines": len(per_line),
+            "benign_lines": len(corpus.BENIGN), "whole_corpus_events": n_events,
+            "pci_map": {str(k): v for k, v in bdf.items()},
+            "escalation": {k: {"health": h, "repair": a} for k, (h, a) in got.items()},
+            "nvlink_poll_s": [window_before, window_after],
+            "write_to_event_ms": latency_ms, "dev_kmsg": dev}
+
+
+def phase_health(workdir: Path, smi: str) -> dict:
+    t_phase = time.perf_counter()
+    for env in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
+        os.environ.pop(env, None)
+    inst = gpu_instance.new_instance()
+    launches_before = scan_links_packed.launches
+    scan_links_packed.launches = 0
+    rec = {"card": smi,
+           "burst": health_burst(inst),
+           "anomaly": health_anomaly(workdir, inst, spin_cycles_per_ms()),
+           "runtime": health_runtime(inst),
+           "xid": health_xid(workdir, inst)}
+    # the health checks run no hand kernel
+    rec["packed_scan_launches"] = scan_links_packed.launches
+    scan_links_packed.launches = launches_before
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"health": rec}), flush=True)
+    return rec
+
+
+# -- 7. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
 # in one call, T = 180 samples (the anomaly component's MAX_WINDOW_SAMPLES),
@@ -1002,7 +1430,7 @@ def phase_analytics() -> dict:
     return out
 
 
-# -- 7. timings ---------------------------------------------------------------------
+# -- 8. timings ---------------------------------------------------------------------
 
 # The device spins this long per timed call before the window opens (the
 # spin is doubled when it did not cover the host): the host's wrapper time
@@ -1168,6 +1596,7 @@ def main() -> int:
     try:
         fleet = phase_fleet(workdir)
         adapter = phase_adapter(workdir)
+        phase_health(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()

@@ -65,6 +65,18 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.scan",
     "gpud_tpu_torch.cli",
     "gpud_tpu_torch",
+    "gpud_tpu_torch.components.gpu.anomaly",
+    "gpud_tpu_torch.components.gpu.error_kmsg",
+    "gpud_tpu_torch.components.gpu.runtime",
+    "gpud_tpu_torch.kmsg.watcher",
+    "gpud_tpu_torch.kmsg.deduper",
+    "gpud_tpu_torch.kmsg.syncer",
+    "gpud_tpu_torch.kmsg.writer",
+    "gpud_tpu_torch.fault_injector",
+    "gpud_tpu_torch.metrics.store",
+    "gpud_tpu_torch.host",
+    "gpud_tpu_torch.process",
+    "gpud_tpu_torch.inotify",
 ])
 def test_the_daemon_path_loads_neither_torch_nor_jax(module):
     # the daemon's modules keep torch (the CUDA runtime) off its import path
@@ -80,6 +92,31 @@ def test_the_daemon_path_loads_neither_torch_nor_jax(module):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_a_scan_with_the_anomaly_check_on_auto_loads_no_torch(tmp_path):
+    # nine checks on the mock, the anomaly check scoring on "auto": with no
+    # CUDA context in the process it scores with numpy and imports no torch
+    (tmp_path / "kmsg").write_text("")
+    code = textwrap.dedent("""
+        import io, json, sys
+        from gpud_tpu_torch.components.gpu.anomaly import GPUAnomalyComponent
+        init = GPUAnomalyComponent.__init__
+        def fast(self, inst):
+            init(self, inst)
+            self.burst_interval_seconds = 0.0
+        GPUAnomalyComponent.__init__ = fast
+        from gpud_tpu_torch.scan import scan
+        results = {r.component_name(): r for r in scan(out=io.StringIO())}
+        print(json.dumps([len(results), results["accelerator-gpu-anomaly"].extra_info["backend"],
+                          sorted(m for m in sys.modules if m.split(".")[0] == "torch")]))
+    """)
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "TPUD_GPU_MOCK_ALL_SUCCESS": "1",
+           "TPUD_ANALYTICS_BACKEND": "auto", "TPUD_KMSG_FILE_PATH": str(tmp_path / "kmsg")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout) == [9, "numpy", []]
 
 
 def test_resolve_device_is_still_a_package_attribute():
@@ -178,6 +215,7 @@ def test_cpu_tensors_run_the_plain_version_without_a_launch(monkeypatch):
         ("gpud_tpu_torch/entry.py", "entry"),
         ("gpud_tpu_torch/entry.py", "dryrun_multichip"),
         ("gpud_tpu_torch/parallel/fleet.py", "make_mesh"),
+        ("gpud_tpu_torch/components/gpu/anomaly.py", "_score_windows"),
     ],
 )
 def test_device_path_has_no_fallback(module, function):

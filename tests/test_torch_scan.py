@@ -19,25 +19,39 @@ import pytest
 
 import gpud_tpu.providers.detect as ref_detect
 import gpud_tpu.scan as ref_scan_mod
+from gpud_tpu.components.tpu.anomaly import TPUAnomalyComponent
 from gpud_tpu.components.tpu.chip_counts import TPUChipCountsComponent
+from gpud_tpu.components.tpu.error_kmsg import TPUErrorKmsgComponent
 from gpud_tpu.components.tpu.hbm import TPUHbmComponent
 from gpud_tpu.components.tpu.ici import TPUICIComponent
 from gpud_tpu.components.tpu.power import TPUPowerComponent
+from gpud_tpu.components.tpu.runtime import TPUProcessesComponent, TPURuntimeComponent
 from gpud_tpu.components.tpu.temperature import TPUTemperatureComponent
 
 from gpud_tpu_torch.cli import main
 from gpud_tpu_torch.components.all import all_components
+from gpud_tpu_torch.components.gpu.anomaly import GPUAnomalyComponent
 from gpud_tpu_torch.scan import scan
 
 from torch_parity import COMPONENTS, injectors
 
 REPO = Path(__file__).resolve().parent.parent
 REF_ACCELERATOR = [TPUChipCountsComponent, TPUTemperatureComponent, TPUHbmComponent,
-                   TPUPowerComponent, TPUICIComponent]
+                   TPUPowerComponent, TPUICIComponent, TPURuntimeComponent,
+                   TPUProcessesComponent, TPUErrorKmsgComponent, TPUAnomalyComponent]
 
 
 @pytest.fixture(autouse=True)
-def _mocks(monkeypatch):
+def _mocks(monkeypatch, tmp_path):
+    # scan mode reads the whole kmsg ring: an empty file, for both packages
+    (tmp_path / "kmsg").write_text("")
+    monkeypatch.setenv("TPUD_KMSG_FILE_PATH", str(tmp_path / "kmsg"))
+    # and the anomaly check samples a burst of telemetry: no pause between
+    for cls in (TPUAnomalyComponent, GPUAnomalyComponent):
+        def init(self, instance, _init=cls.__init__):
+            _init(self, instance)
+            self.burst_interval_seconds = 0.0
+        monkeypatch.setattr(cls, "__init__", init)
     monkeypatch.setenv("TPUD_GPU_MOCK_ALL_SUCCESS", "1")
     monkeypatch.setenv("TPUD_TPU_MOCK_ALL_SUCCESS", "1")
     for env in ("TPUD_GPU_USE_TORCH", "TPUD_GPU_MOCK_ACCELERATOR_TYPE",
@@ -67,7 +81,7 @@ def test_scan_on_the_mock_is_all_healthy():
     text = out.getvalue()
     assert "gpu        : present (NVIDIA H100-SXM, h100-sxm-8, 8 GPUs" in text
     assert "all 144/144 NVLink links up" in text
-    assert "5 checks, 5 healthy, 0 not healthy" in text
+    assert "9 checks, 9 healthy, 0 not healthy" in text
 
 
 FAULTS = {
@@ -107,7 +121,7 @@ def test_scan_matches_the_reference_scan(ref_scan, fault):
 def test_cli_scan_table(capsys):
     assert main(["scan"]) == 0
     out = capsys.readouterr().out
-    assert "accelerator-gpu-nvlink" in out and "5 checks, 5 healthy" in out
+    assert "accelerator-gpu-nvlink" in out and "9 checks, 9 healthy" in out
 
 
 def test_cli_scan_json_and_strict(capsys, monkeypatch):
@@ -148,7 +162,10 @@ def test_scan_without_nvml_reports_absence(monkeypatch):
     monkeypatch.setattr("ctypes.CDLL", no_lib)
     out = io.StringIO()
     results = scan(out=out)
-    assert [r.component_name() for r in results] == ["accelerator-gpu-counts"]
+    # the kmsg check reads the ring on any host; the rest need the library
+    assert [r.component_name() for r in results] == ["accelerator-gpu-counts",
+                                                     "accelerator-gpu-error-kmsg"]
     assert results[0].health_state_type() == "Unhealthy"
     assert "cannot open shared object file" in results[0].reason
-    assert out.getvalue().count("not supported on this host") == 4
+    assert results[1].health_state_type() == "Healthy"
+    assert out.getvalue().count("not supported on this host") == 7

@@ -10,6 +10,10 @@ before they compare it with the port's:
 - ``GAUGES``: metric names (the label ``chip`` becomes ``gpu``);
 - ``COMPONENTS``: component names;
 - ``KNOBS``: the failure injector's knobs;
+- ``ACTIONS``: repair actions that name the accelerator;
+- ``UNITS``, ``DEVICE_NODES``: the runtime's systemd units and device nodes;
+- ``CATALOG_NAMES``: the host-wide kmsg catalog entries carried over, and
+  ``LINE_TOKENS``, the driver tokens of their kernel lines;
 - ``extra_key``: extra-info keys (``chip{N}_`` becomes ``gpu{N}_``);
 - ``link_name``: ``chip{N}/ici{L}`` becomes ``gpu{N}/nvlink{L}``.
 
@@ -41,6 +45,7 @@ _LINK = re.compile(r"chip(\d+)/ici(\d+)")
 
 # (reference, port), applied in order
 NOUNS = [
+    ("direct libtpu mode", "direct driver mode"),
     ("TPU chips", "GPUs"),
     ("TPU chip", "GPU"),
     ("HBM", "GPU memory"),
@@ -91,6 +96,9 @@ GAUGES = {
     "tpud_tpu_ici_links_expected": "tpud_gpu_nvlink_links_expected",
     "tpud_tpu_ici_link_state": "tpud_gpu_nvlink_link_state",
     "tpud_tpu_ici_link_crc_errors_total": "tpud_gpu_nvlink_link_crc_errors_total",
+    "tpud_tpu_anomaly_score": "tpud_gpu_anomaly_score",
+    "tpud_tpu_device_holder_processes": "tpud_gpu_device_holder_processes",
+    "tpud_tpu_kmsg_errors_total": "tpud_gpu_kmsg_errors_total",
 }
 
 COMPONENTS = {
@@ -99,7 +107,54 @@ COMPONENTS = {
     "accelerator-tpu-hbm": "accelerator-gpu-memory",
     "accelerator-tpu-chip-counts": "accelerator-gpu-counts",
     "accelerator-tpu-ici": "accelerator-gpu-nvlink",
+    "accelerator-tpu-runtime": "accelerator-gpu-runtime",
+    "accelerator-tpu-processes": "accelerator-gpu-processes",
+    "accelerator-tpu-error-kmsg": "accelerator-gpu-error-kmsg",
+    "accelerator-tpu-anomaly": "accelerator-gpu-anomaly",
 }
+
+ACTIONS = {"CHECK_USER_APP_AND_TPU": "CHECK_USER_APP_AND_GPU"}
+
+UNITS = {"tpu-runtime.service": "nvidia-fabricmanager.service",
+         "tpu-device-daemon.service": "nvidia-persistenced.service"}
+
+# a TPU chip's device node and the GPU's; vfio groups are the same
+DEVICE_NODES = [(re.compile(r"/dev/accel(\d+)"), r"/dev/nvidia\1")]
+
+# host-wide entries of the reference's kmsg catalog that the port carries
+# over (EDAC, MCE, thermal, power, PCIe, IOMMU, vfio); the TPU's own
+# driver, HBM, ICI and runtime entries give way to NVIDIA's Xid and SXid
+CATALOG_NAMES = {
+    "tpu_edac_uncorrectable": "gpu_edac_uncorrectable",
+    "tpu_edac_correctable": "gpu_edac_correctable",
+    "tpu_hbm_mce": "gpu_host_mce_memory",
+    "tpu_power_fault": "gpu_power_fault",
+    "tpu_vrm_fault": "gpu_vrm_fault",
+    "tpu_thermal_trip": "gpu_thermal_trip",
+    "tpu_power_throttle": "gpu_power_throttle",
+    "tpu_thermal_warning": "gpu_thermal_warning",
+    "tpu_pcie_recovery_failed": "gpu_pcie_recovery_failed",
+    "tpu_vfio_aer_correctable": "gpu_vfio_aer_correctable",
+    "tpu_vfio_aer": "gpu_vfio_aer",
+    "tpu_pcie_uncorrectable": "gpu_pcie_uncorrectable",
+    "tpu_pcie_slot_link_down": "gpu_pcie_slot_link_down",
+    "tpu_pcie_surprise_down": "gpu_pcie_surprise_down",
+    "tpu_pcie_completion_timeout": "gpu_pcie_completion_timeout",
+    "tpu_pcie_dpc_containment": "gpu_pcie_dpc_containment",
+    "tpu_pcie_link_downgrade": "gpu_pcie_link_downgrade",
+    "tpu_pcie_correctable": "gpu_pcie_correctable",
+    "tpu_dev_unbind_requested": "gpu_dev_unbind_requested",
+    "tpu_vfio_reset_recovery": "gpu_vfio_reset_recovery",
+    "tpu_iommu_fault": "gpu_iommu_fault",
+    "tpu_host_mem_ghes": "gpu_host_mem_ghes",
+    "tpu_pcie_not_ready": "gpu_pcie_not_ready",
+    "tpu_pcie_flr_timeout": "gpu_pcie_flr_timeout",
+    "tpu_host_thermal_critical": "gpu_host_thermal_critical",
+}
+
+# the TPU driver's tokens in a kernel line and the NVIDIA driver's
+LINE_TOKENS = [(re.compile(r"\b(accel|apex|gasket|google_tpu)"), "nvidia"),
+               (re.compile(r"\bTPU\b"), "GPU")]
 
 KNOBS = {
     "chip_ids_lost": "gpu_ids_lost",
@@ -129,6 +184,29 @@ def nouns(text: str) -> str:
 
 def extra_key(key: str) -> str:
     return re.sub(r"^chip(\d+)_", r"gpu\1_", key)
+
+
+def actions(acts) -> list:
+    return [ACTIONS.get(a, a) for a in acts]
+
+
+def unit_names(text: str) -> str:
+    for a, b in UNITS.items():
+        text = text.replace(a, b)
+    return text
+
+
+def device_nodes(text: str) -> str:
+    for pat, rep in DEVICE_NODES:
+        text = pat.sub(rep, text)
+    return text
+
+
+def kernel_line(line: str) -> str:
+    """A reference kernel line as the NVIDIA driver would print it."""
+    for pat, rep in LINE_TOKENS:
+        line = pat.sub(rep, line)
+    return line
 
 
 def injectors(**ref_knobs):
@@ -255,7 +333,8 @@ def assert_result_parity(ref_cr, port_cr, ref_accel: str = "", port_accel: str =
     if ref_cr.suggested_actions is None:
         assert port_cr.suggested_actions is None
     else:
-        assert port_cr.suggested_actions.repair_actions == ref_cr.suggested_actions.repair_actions
+        assert port_cr.suggested_actions.repair_actions == actions(
+            ref_cr.suggested_actions.repair_actions)
         assert port_cr.suggested_actions.description == nouns(ref_cr.suggested_actions.description)
     want = {extra_key(k): v for k, v in ref_cr.extra_info.items()}
     if "accelerator_type" in want:
