@@ -29,8 +29,12 @@ Phases, each printing its own lines:
              then six samples of the card's links (``gpu0/nvlink0`` injected
              down in samples 3-4) through ``NVLinkStore`` into
              ``fleet_scan``, which must launch the kernel once and agree
-             with ``NVLinkStore.scan`` and with ``device="cpu"``; printed as
-             the ``{"adapter": ...}`` line;
+             with ``NVLinkStore.scan`` and with ``device="cpu"``; GPU 0's
+             NVLink error counters read through field values beside
+             ``nvidia-smi nvlink -e`` (equal where both read), and the NVML
+             calls and host ms of a sample with the per-link error-counter
+             calls and with one field-values call per GPU; printed as the
+             ``{"adapter": ...}`` line;
 6. health - the health checks of this slice on the card: the anomaly
              check over a metrics store of one HGX host (8 GPUs x 180
              one-minute samples x 7 features, GPU 5 drifting), scored with
@@ -50,7 +54,18 @@ Phases, each printing its own lines:
              check() by backend, robust_scores' device ms at 8 x 180 x 7 and
              the burst's NVML ms per sample; printed as the ``{"health": ...}``
              line;
-7. analytics - the analytics plane on the card (torch ops, no hand kernel):
+7. host   - ``scan()``'s 22 checks on the card's machine: a result or "not
+             supported" for each; the CPU, memory, disk and OS checks held
+             against ``nproc``, ``free -b``, ``df -B1 /`` (within one block)
+             and ``uname -r``; each host check's verdict, reason and host
+             ms, the scan's wall seconds; the NFS check over a group of two
+             under the workdir (2 members fresh, then 1/2 unhealthy once one
+             member's file is removed); printed as the ``{"host": ...}``
+             line. Nothing dials a public address (``no_public_network``):
+             the network-latency check's edges are reported unreachable
+             without a connection (its verdict is a host without egress's)
+             and provider detection is not run (``no_public_network``);
+8. analytics - the analytics plane on the card (torch ops, no hand kernel):
              ``robust_scores`` over a fleet of 16384 chips x 180 samples x 8
              features with 16 seeded drifting chips (they must score top
              16, and equal the numpy twin), ``entry()`` and the autoencoder
@@ -59,7 +74,7 @@ Phases, each printing its own lines:
              ``dryrun_multichip(1)`` over NCCL; then device ms, host ms,
              kernels per call and the top kernels of four calls beside
              their bounds, printed as the ``{"analytics": ...}`` line;
-8. timing  - device time per call of the kernel and of its plain version
+9. timing  - device time per call of the kernel and of its plain version
              at both shapes, beside the memory bound: CUDA events around
              batches of back-to-back calls on input copies that together
              exceed the L2, with a device spin that keeps the host's
@@ -67,7 +82,8 @@ Phases, each printing its own lines:
              from torch.profiler, one launch alone after an L2 flush, and
              the wrapper's host time per call.
 
-The ``{"adapter": ...}``, ``{"health": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
+The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}`` and ``{"analytics": ...}``
+lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -90,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -100,6 +117,12 @@ sys.path.insert(0, str(ROOT))
 
 from gpud_tpu_torch import fleet_scan as fleet_scan_mod  # noqa: E402
 from gpud_tpu_torch import host as host_mod  # noqa: E402
+from gpud_tpu_torch import netutil, procfs  # noqa: E402
+from gpud_tpu_torch.components import base as base_mod  # noqa: E402
+from gpud_tpu_torch.components.host_extra import NFSComponent  # noqa: E402
+from gpud_tpu_torch.components.all import all_components  # noqa: E402
+from gpud_tpu_torch.metrics.registry import DEFAULT_REGISTRY  # noqa: E402
+from gpud_tpu_torch.providers import detect as provider_detect  # noqa: E402
 from gpud_tpu_torch.api.v1.types import (  # noqa: E402
     Event,
     EventType,
@@ -150,6 +173,21 @@ from gpud_tpu_torch.ops.packed_scan import (  # noqa: E402
 from gpud_tpu_torch.ops.window_scan import classify_links  # noqa: E402
 from gpud_tpu_torch.scan import scan as host_scan  # noqa: E402
 from gpud_tpu_torch.sqlite import DB  # noqa: E402
+
+
+
+def no_public_network() -> None:
+    """The script runs on card machines without egress and dials no public
+    address: the network-latency check's edges (public DNS and cloud
+    metadata) are reported unreachable without a connection attempt, which
+    is what the check sees on a host without egress, and cloud provider
+    detection (metadata services, then ip.guide) is not run."""
+    netutil.measure_edges = lambda edges=None, timeout=2.0: {
+        name: None for name, _host, _port in (edges or netutil.DEFAULT_EDGES)}
+    provider_detect.detect = lambda timeout=5.0: provider_detect.DetectResult(provider="unknown")
+
+
+no_public_network()  # before any phase, also when a phase is called alone
 
 SEED = 20260
 # one 256-GPU pod of 8-GPU HGX H100 hosts, 18 NVLink links per GPU
@@ -765,7 +803,150 @@ def store_into_fleet_scan(workdir: Path, base, window: float = 3600.0) -> dict:
             "summary": res["summary"], "gpu0/nvlink0": res["links"][host + "gpu0/nvlink0"]}
 
 
-def phase_adapter(workdir: Path) -> dict:
+# C1: the NVLink error counters, read through one nvmlDeviceGetFieldValues call
+# per GPU (gpu/nvml.py DeviceReader.links) in place of five
+# nvmlDeviceGetNvLinkErrorCounter calls per link
+SMI_COUNTERS = {"Replay Errors": "replay", "Recovery Errors": "recovery", "CRC Errors": "crc"}
+OLD_COUNTERS = (("replay", nvml_mod.NVML_NVLINK_ERROR_DL_REPLAY),
+                ("recovery", nvml_mod.NVML_NVLINK_ERROR_DL_RECOVERY),
+                ("crc_flit", nvml_mod.NVML_NVLINK_ERROR_DL_CRC_FLIT),
+                ("crc_data", nvml_mod.NVML_NVLINK_ERROR_DL_CRC_DATA),
+                ("ecc_data", nvml_mod.NVML_NVLINK_ERROR_DL_ECC_DATA))
+
+
+def smi_nvlink_errors(index: int) -> dict:
+    """(link, counter) -> value from ``nvidia-smi nvlink -e -i N``, None
+    where it prints N/A."""
+    out = {}
+    for m in re.finditer(r"Link (\d+): ([A-Za-z ]+?): (\S+)", smi("nvlink", "-e", "-i", str(index))):
+        counter = SMI_COUNTERS.get(m.group(2))
+        if counter is not None:
+            v = m.group(3)
+            out[(int(m.group(1)), counter)] = int(v) if v.isdigit() else None
+    return out
+
+
+def links_by_error_counter(reader) -> list:
+    """The link walk before field values, for the comparison: each link's
+    state, then its five counters, one NVML call each."""
+    out = []
+    for link in range(nvml_mod.NVML_NVLINK_MAX_LINKS):
+        try:
+            reader.nvml.nvlink_active(reader.handle, link)
+        except nvml_mod.NVMLError as e:
+            if e.code == nvml_mod.NVML_ERROR_INVALID_ARGUMENT:
+                break
+            continue
+        for name, counter in OLD_COUNTERS:
+            reader.read(f"nvlink{link}_{name}", reader.nvml.nvlink_error_counter, link, counter)
+        out.append(link)
+    return out
+
+
+class NVMLCalls:
+    """Counts the binding's NVML calls, the refused ones, and the field-value
+    entries and refused entries, while the ``with`` block runs."""
+
+    def __init__(self, nvml) -> None:
+        self.nvml = nvml
+        self.calls = self.refused = self.fields = self.fields_refused = 0
+
+    def __enter__(self):
+        call, field_values = self.nvml._call, self.nvml.field_values
+
+        def counted_call(name, *args):
+            self.calls += 1
+            try:
+                return call(name, *args)
+            except nvml_mod.NVMLError:
+                self.refused += 1
+                raise
+
+        def counted_fields(handle, requests):
+            arr = field_values(handle, requests)
+            self.fields += len(requests)
+            self.fields_refused += sum(fv.nvmlReturn != nvml_mod.NVML_SUCCESS for fv in arr)
+            return arr
+
+        self.nvml._call, self.nvml.field_values = counted_call, counted_fields
+        return self
+
+    def __exit__(self, *exc):
+        del self.nvml._call, self.nvml.field_values  # the class's methods again
+
+
+def sample_cost(inst, walk) -> dict:
+    """NVML calls and host ms of one sample (telemetry + every GPU's links)
+    with the link walk ``walk(reader)``."""
+    def sample():
+        inst.telemetry()
+        for _gpu, handle in inst._handles():
+            if handle is not None:
+                walk(nvml_mod.DeviceReader(inst.nvml, handle))
+
+    with NVMLCalls(inst.nvml) as n:
+        sample()
+    return {"calls": n.calls, "refused_calls": n.refused, "field_entries": n.fields,
+            "refused_field_entries": n.fields_refused, "host_ms": host_ms(sample)}
+
+
+def check_nvlink_counters(inst, smi_line: str) -> dict:
+    """GPU 0's link counters through field values beside ``nvidia-smi nvlink
+    -e``, equal where both read; the cost of a sample before and after."""
+    handle = inst.nvml.handle(0)
+    r = nvml_mod.DeviceReader(inst.nvml, handle)
+    samples = r.links()
+    theirs = smi_nvlink_errors(0)
+    if {ln for ln, _c in theirs} != {s.link_id for s in samples}:
+        raise AssertionError(f"nvidia-smi nvlink -e lists links {sorted({ln for ln, _c in theirs})}, "
+                             f"NVML {[s.link_id for s in samples]}")
+    compared, read, refused, mismatches = 0, 0, 0, []
+    for s in samples:
+        cells = []
+        for counter, ours in (("replay", s.replays), ("recovery", s.recoveries),
+                              ("crc", s.crc_errors), ("ecc_data", s.ecc_errors)):
+            name = f"nvlink{s.link_id}_{counter}"
+            got = None if name in r.unsupported or name in r.errors else ours
+            read += got is not None
+            refused += got is None
+            want = theirs.get((s.link_id, counter)) if counter != "ecc_data" else None
+            if got is not None and want is not None:
+                compared += 1
+                if got != want:
+                    mismatches.append((name, got, want))
+            shown = "refused" if got is None else str(got)
+            cells.append(f"{counter} {shown}" + (
+                "" if counter == "ecc_data" else f"/{'N/A' if want is None else want}"))
+        line("adapter", f"gpu0/nvlink{s.link_id}: " + ", ".join(cells)
+             + " (field values / nvidia-smi nvlink -e)")
+    if mismatches:
+        raise AssertionError(f"NVLink counters differ from nvidia-smi nvlink -e: {mismatches}")
+    smi_read = sum(v is not None for v in theirs.values())
+    before = sample_cost(inst, links_by_error_counter)
+    after = sample_cost(inst, lambda reader: reader.links())
+    if read:
+        verdict = f"{read} counters read through field values"
+    elif smi_read:
+        verdict = (f"NVML refuses every NVLink error field value while nvidia-smi nvlink -e "
+                   f"reads {smi_read}: C1 stays open")
+    else:
+        verdict = ("the card refuses every NVLink error field value and nvidia-smi nvlink -e "
+                   "prints N/A for every counter: C1 stays open")
+    line("adapter", f"C1: {verdict}; {compared} compared with nvidia-smi (equal), "
+                    f"nvidia-smi read {smi_read} of {len(theirs)}; errors {r.errors}")
+    for label, cost in (("before (5 error-counter calls per link)", before),
+                        ("after (1 field-values call per GPU)", after)):
+        line("adapter", f"NVML per sample {label}: {cost['calls']} calls, "
+                        f"{cost['refused_calls']} refused, {cost['field_entries']} field entries "
+                        f"({cost['refused_field_entries']} refused), {cost['host_ms']:.3f} ms host "
+                        f"[{smi_line}]")
+    return {"links": len(samples), "counters_read": read, "counters_refused": refused,
+            "smi_read": smi_read, "smi_counters": len(theirs), "compared_equal": compared,
+            "unsupported_fields": len(r.unsupported), "errors": r.errors,
+            "before": before, "after": after, "open": read == 0}
+
+
+def phase_adapter(workdir: Path, smi_line: str = "") -> dict:
     t_phase = time.perf_counter()
     for env in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
         os.environ.pop(env, None)
@@ -800,6 +981,7 @@ def phase_adapter(workdir: Path) -> dict:
         nvlink[f"gpu{gid}"] = {"links": len(ours), "active": sum(ours.values())}
     line("adapter", f"NVLink equals nvidia-smi nvlink -s: {nvlink}")
     layouts = check_layouts(workdir)
+    c1 = check_nvlink_counters(inst, smi_line)
 
     os.environ[gpu_instance.ENV_USE_TORCH] = "1"
     try:
@@ -817,7 +999,7 @@ def phase_adapter(workdir: Path) -> dict:
     rec = {"backend": type(inst).__name__, "product": inst.product_name(),
            "accelerator_type": inst.accelerator_type(), "driver": inst.driver_version(),
            "cuda": inst.runtime_version(), "open_ms": t_open, "sample_ms": t_sample,
-           "smi_fields_equal": len(checked), "nvlink": nvlink, "layouts": layouts,
+           "smi_fields_equal": len(checked), "nvlink": nvlink, "layouts": layouts, "c1": c1,
            "torch_backend_devices": len(tdevs), "components": components, **store,
            "phase_s": time.perf_counter() - t_phase}
     print(json.dumps({"adapter": rec}), flush=True)
@@ -1212,7 +1394,163 @@ def phase_health(workdir: Path, smi: str) -> dict:
     return rec
 
 
-# -- 7. analytics ---------------------------------------------------------------
+# -- 7. host checks -----------------------------------------------------------------
+
+HOST_CHECKS = [c.NAME for c in all_components()[:13]]
+
+
+def tool(*argv: str) -> str:
+    return subprocess.run(list(argv), capture_output=True, text=True, timeout=60,
+                          check=True).stdout
+
+
+class CheckTimes:
+    """Host ms of each component's ``check()`` while the block runs."""
+
+    def __enter__(self):
+        self.ms = {}
+        self._real = real = base_mod.Component.check
+
+        def timed(comp):
+            t0 = time.perf_counter()
+            try:
+                return real(comp)
+            finally:
+                self.ms[comp.name()] = (time.perf_counter() - t0) * 1e3
+
+        base_mod.Component.check = timed
+        return self
+
+    def __exit__(self, *exc):
+        base_mod.Component.check = self._real
+
+
+def disk_gauges(mount: str = "/") -> dict:
+    """The disk check's total and used bytes for ``mount``, from its gauges."""
+    out = {}
+    for _ts, name, labels, value in DEFAULT_REGISTRY.gather(0):
+        if labels.get("component") == "disk" and labels.get("mount_point") == mount:
+            out[name] = value
+    return out
+
+
+def hold_host_checks(results: dict) -> dict:
+    """The CPU, memory, disk and OS checks against tools that do not share
+    their readers: nproc, free -b, df -B1 / and uname -r."""
+    held = {}
+    nproc = int(tool("nproc"))
+    cores = int(results["cpu"].extra_info["logical_cores"])
+    if cores != nproc:
+        raise AssertionError(f"cpu check: {cores} logical cores, nproc {nproc}")
+    held["cpu.logical_cores"] = (cores, nproc)
+    free_total = next(int(row.split()[1]) for row in tool("free", "-b").splitlines()
+                      if row.startswith("Mem:"))
+    total = int(results["memory"].extra_info["total_bytes"])
+    if total != free_total:
+        raise AssertionError(f"memory check: total {total} B, free -b {free_total} B")
+    held["memory.total_bytes"] = (total, free_total)
+    df = tool("df", "-B1", "/").splitlines()[1].split()
+    df_total, df_used = int(df[1]), int(df[2])
+    block = os.statvfs("/").f_frsize
+    g = disk_gauges("/")
+    ours_total, ours_used = g["tpud_disk_total_bytes"], g["tpud_disk_used_bytes"]
+    if abs(ours_total - df_total) > block or abs(ours_used - df_used) > block:
+        raise AssertionError(f"disk check on /: size {ours_total}, used {ours_used}; "
+                             f"df -B1 / {df_total}, {df_used} (one block is {block} B)")
+    held["disk./.size_bytes"] = (ours_total, df_total)
+    held["disk./.used_bytes"] = (ours_used, df_used)
+    uname = tool("uname", "-r").strip()
+    kernel = results["os"].extra_info["kernel_version"]
+    if kernel != uname:
+        raise AssertionError(f"os check: kernel {kernel!r}, uname -r {uname!r}")
+    held["os.kernel_version"] = (kernel, uname)
+    for key, (ours, theirs) in held.items():
+        line("host", f"{key}: check {ours}, tool {theirs}")
+    return held
+
+
+def nfs_group_of_two(workdir: Path) -> dict:
+    """Two members write to a group directory under the workdir (the
+    reference's tests/test_multihost_nfs_e2e.py, without daemons): both read
+    2 fresh members; with the membership pinned at 2, removing one member's
+    file leaves the other 1/2 unhealthy."""
+    group = workdir / "nfs-group"
+    cfg = types.SimpleNamespace(nfs_group_dirs=[str(group)])
+    a, b = (NFSComponent(TpudInstance(config=cfg, machine_id=m)) for m in ("host-a", "host-b"))
+    key = f"{group}:members_fresh"
+    first = [a.check(), b.check(), a.check()]  # a wrote first, then saw b
+    if any(r.health_state_type() != HealthStateType.HEALTHY for r in first) or \
+            [r.extra_info[key] for r in first] != ["1", "2", "2"]:
+        raise AssertionError(f"nfs group of two: {[(r.summary(), r.extra_info) for r in first]}")
+    for c in (a, b):
+        c.group_configs[0].expected_members = 2
+    (group / "host-a").unlink()
+    after = b.check()
+    if after.health_state_type() != HealthStateType.UNHEALTHY or \
+            "1/2 members fresh" not in after.summary():
+        raise AssertionError(f"nfs with host-a gone: {after.health_state_type()}, {after.summary()}")
+    line("host", f"nfs: {first[1].summary()} ({key.replace(str(workdir), '<workdir>')} = 2); "
+                 f"host-a's file removed: {after.health_state_type()}, "
+                 f"{after.summary().replace(str(workdir), '<workdir>')}")
+    return {"members_fresh": 2, "after_removal": after.health_state_type(),
+            "reason_after_removal": after.summary().replace(str(workdir), "<workdir>")}
+
+
+def phase_host(workdir: Path, smi_line: str, c1: dict) -> dict:
+    """The 22-check ``scan()`` on the card's machine: a result or "not
+    supported" for every check, the host checks held against tools, each
+    check's host ms and the scan's wall seconds."""
+    t_phase = time.perf_counter()
+    for env in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
+        os.environ.pop(env, None)
+    launches_before = scan_links_packed.launches
+    scan_links_packed.launches = 0
+    buf = io.StringIO()
+    with CheckTimes() as times:
+        t0 = time.perf_counter()
+        results = {r.component_name(): r for r in host_scan(out=buf)}
+        wall_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    for row in text.splitlines():
+        if row.strip():
+            line("host", "scan | " + row)
+    names = [c.NAME for c in all_components()]
+    unsupported = set(re.findall(r"^  (\S+)\s+-  not supported on this host$", text, re.M))
+    missing = [n for n in names if n not in results and n not in unsupported]
+    if len(names) != 22 or missing or set(results) & unsupported:
+        raise AssertionError(f"scan: {len(names)} components, without a result {missing}")
+    held = hold_host_checks(results)
+    checks = {}
+    for n in HOST_CHECKS:
+        if n in results:
+            r = results[n]
+            checks[n] = {"health": r.health_state_type(), "reason": r.summary(),
+                         "host_ms": times.ms[n]}
+            line("host", f"{n}: {r.health_state_type()} | {r.summary()} | "
+                         f"{times.ms[n]:.3f} ms host [{smi_line}]")
+        else:
+            checks[n] = {"health": None, "reason": "not supported"}
+            line("host", f"{n}: not supported on this host")
+    line("host", "network-latency: the edges were not dialled (no_public_network); "
+                 "the verdict is a host without egress's")
+    gpu_ms = {n: times.ms[n] for n in names[13:] if n in times.ms}
+    line("host", f"scan(): {len(results)} checks, {len(unsupported)} not supported, "
+                 f"{wall_s:.3f} s wall; GPU checks' host ms {json.dumps(gpu_ms)} [{smi_line}]")
+    line("host", f"C1: NVLink error counters through field values: "
+                 f"{'refused by the card, C1 open' if c1['open'] else 'read'}; NVML per sample "
+                 f"{c1['before']['calls']} -> {c1['after']['calls']} calls, "
+                 f"{c1['before']['host_ms']:.3f} -> {c1['after']['host_ms']:.3f} ms host")
+    rec = {"card": smi_line, "scan_wall_s": wall_s, "checks": checks,
+           "not_supported": sorted(unsupported), "gpu_check_host_ms": gpu_ms,
+           "held_against_tools": held, "nfs": nfs_group_of_two(workdir), "c1": c1,
+           "packed_scan_launches": scan_links_packed.launches,
+           "phase_s": time.perf_counter() - t_phase}
+    scan_links_packed.launches = launches_before
+    print(json.dumps({"host": rec}), flush=True)
+    return rec
+
+
+# -- 8. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
 # in one call, T = 180 samples (the anomaly component's MAX_WINDOW_SAMPLES),
@@ -1430,7 +1768,7 @@ def phase_analytics() -> dict:
     return out
 
 
-# -- 8. timings ---------------------------------------------------------------------
+# -- 9. timings ---------------------------------------------------------------------
 
 # The device spins this long per timed call before the window opens (the
 # spin is doubled when it did not cover the host): the host's wrapper time
@@ -1595,8 +1933,9 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dbs_", dir=build_dir))
     try:
         fleet = phase_fleet(workdir)
-        adapter = phase_adapter(workdir)
+        adapter = phase_adapter(workdir, smi)
         phase_health(workdir, smi)
+        phase_host(workdir, smi, adapter["c1"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()

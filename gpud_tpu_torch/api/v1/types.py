@@ -4,8 +4,9 @@ These are the core data types exchanged between components, the local HTTP
 API, the client SDK, and the control-plane session. They mirror the semantic
 surface of the reference daemon's API types (reference: api/v1/types.go:17-259).
 This module holds health states, repair actions, suggested actions, events,
-metrics and the component wrappers; the machine and GPU inventory types come
-with the device-free daemon.
+metrics, the component wrappers and the block-device tree the disk check
+reads; the rest of the machine and GPU inventory types come with the
+device-free daemon.
 
 Everything is a plain dataclass with explicit ``to_dict``/``from_dict`` so
 the JSON wire format is stable and dependency-free.
@@ -314,4 +315,59 @@ class ComponentInfo:
             states=[HealthState.from_dict(x) for x in info.get("states", []) or []],
             events=[Event.from_dict(x) for x in info.get("events", []) or []],
             metrics=[Metric.from_dict(x) for x in info.get("metrics", []) or []],
+        )
+
+
+# ---------------------------------------------------------------------------
+# Block-device tree (reference package: gpud_tpu/api/v1/types.py)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class BlockDeviceInfo:
+    """One node of the block-device tree (reference:
+    pkg/machine-info/machine_info.go:45-434 builds the lsblk-style
+    disk tree; here it is read from /sys/block directly)."""
+
+    name: str = ""
+    type: str = "disk"          # disk | part
+    size_bytes: int = 0
+    model: str = ""
+    rotational: bool = False
+    removable: bool = False
+    mount_point: str = ""
+    fstype: str = ""
+    used_bytes: int = 0
+    children: List["BlockDeviceInfo"] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "name": self.name,
+            "type": self.type,
+            "size_bytes": self.size_bytes,
+            "model": self.model,
+            "rotational": self.rotational,
+            "removable": self.removable,
+            "mount_point": self.mount_point,
+            "fstype": self.fstype,
+            "used_bytes": self.used_bytes,
+        }
+        if self.children:
+            d["children"] = [c.to_dict() for c in self.children]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "BlockDeviceInfo":
+        return cls(
+            name=d.get("name", ""),
+            type=d.get("type", "disk"),
+            size_bytes=int(d.get("size_bytes", 0)),
+            model=d.get("model", ""),
+            rotational=bool(d.get("rotational", False)),
+            removable=bool(d.get("removable", False)),
+            mount_point=d.get("mount_point", ""),
+            fstype=d.get("fstype", ""),
+            used_bytes=int(d.get("used_bytes", 0)),
+            children=[
+                cls.from_dict(c) for c in d.get("children", []) or []
+            ],
         )

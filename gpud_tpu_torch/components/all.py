@@ -1,8 +1,8 @@
-"""Ordered registration list of the port's components
+"""Ordered registration list of all built-in components
 (reference: components/all/all.go:56-90; ``gpud_tpu/components/all.py``).
 
-The accelerator components, in the reference's order; the host components
-come with the device-free daemon.
+The 13 host components first, then the nine GPU components, in the
+reference's order.
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ from __future__ import annotations
 from typing import List
 
 from gpud_tpu_torch.components.base import InitFunc
+from gpud_tpu_torch.components.cpu import CPUComponent
+from gpud_tpu_torch.components.disk import DiskComponent
 from gpud_tpu_torch.components.gpu.anomaly import GPUAnomalyComponent
 from gpud_tpu_torch.components.gpu.error_kmsg import GPUErrorKmsgComponent
 from gpud_tpu_torch.components.gpu.gpu_counts import GPUCountsComponent
@@ -21,11 +23,38 @@ from gpud_tpu_torch.components.gpu.runtime import (
     GPURuntimeComponent,
 )
 from gpud_tpu_torch.components.gpu.temperature import GPUTemperatureComponent
+from gpud_tpu_torch.components.host_extra import (
+    ContainerdComponent,
+    DockerComponent,
+    FuseComponent,
+    KernelModuleComponent,
+    KubeletComponent,
+    LibraryComponent,
+    NetworkLatencyComponent,
+    NFSComponent,
+    PCIComponent,
+)
+from gpud_tpu_torch.components.memory import MemoryComponent
+from gpud_tpu_torch.components.os_comp import OSComponent
 
 
 def all_components() -> List[InitFunc]:
-    """In the reference's order of the accelerator components."""
+    """Registration order mirrors dependency order: host basics first,
+    then accelerator components."""
     return [
+        OSComponent,
+        CPUComponent,
+        MemoryComponent,
+        DiskComponent,
+        FuseComponent,
+        KernelModuleComponent,
+        LibraryComponent,
+        NetworkLatencyComponent,
+        NFSComponent,
+        PCIComponent,
+        ContainerdComponent,
+        DockerComponent,
+        KubeletComponent,
         GPUCountsComponent,
         GPUTemperatureComponent,
         GPUMemoryComponent,

@@ -60,9 +60,9 @@ class NVLinkSnapshot:
     """One NVLink link's state and counters at a point in time (reference:
     components/accelerator/nvidia/infiniband/class/class.go:14-34).
 
-    From NVML: ``replays`` is the data-link replay count, ``crc_errors`` the
-    CRC flit and CRC data errors, ``tx_errors`` the link recoveries and
-    ``rx_errors`` the ECC data errors. NVML gives no byte counters for a
+    From NVML's link-scoped field values: ``replays`` is the data-link
+    replay count, ``crc_errors`` the data-link CRC errors, ``tx_errors`` the
+    link recoveries and ``rx_errors`` the ECC data errors (links 0-11). NVML gives no byte counters for a
     link, so ``tx_bytes`` and ``rx_bytes`` stay 0."""
 
     gpu_id: int

@@ -1,19 +1,20 @@
-"""Host identity and lifecycle (the part of ``gpud_tpu/host.py`` that the
-port's components need).
+"""Host identity and lifecycle (the port of ``gpud_tpu/host.py``).
 
-Reference: pkg/host — machine-id/boot-id readers, uptime helpers and
+Reference: pkg/host — machine-id/boot-id readers, virtualization detection,
 ``RebootEventStore`` (records boot-time-derived reboot events,
-pkg/host/event.go:44-85).
+pkg/host/event.go:44-85), ``Reboot()`` via systemctl/shutdown
+(pkg/host/reboot.go:46+), uptime helpers.
 """
 
 from __future__ import annotations
 
 import time
 import uuid as _uuid
-from typing import List
+from typing import List, Optional
 
 from gpud_tpu_torch.api.v1.types import Event, EventType
-from gpud_tpu_torch.log import get_logger
+from gpud_tpu_torch.log import audit, get_logger
+from gpud_tpu_torch.process import run_command
 
 logger = get_logger(__name__)
 
@@ -55,6 +56,34 @@ def boot_time() -> float:
     return time.time() - uptime_seconds()
 
 
+def kernel_version() -> str:
+    return _read_first_line("/proc/sys/kernel/osrelease")
+
+
+def os_name() -> str:
+    try:
+        with open("/etc/os-release", "r", encoding="utf-8") as f:
+            for ln in f:
+                if ln.startswith("PRETTY_NAME="):
+                    return ln.split("=", 1)[1].strip().strip('"')
+    except OSError:
+        pass
+    return _read_first_line("/proc/sys/kernel/ostype")
+
+
+def virtualization() -> str:
+    """Best-effort virtualization detection (reference: pkg/host virt detect)."""
+    r = run_command(["systemd-detect-virt"], timeout=5.0)
+    if r.exit_code == 0:
+        return r.output.strip()
+    product = _read_first_line("/sys/class/dmi/id/product_name").lower()
+    if "google" in product:
+        return "gce"
+    if product:
+        return product
+    return "unknown" if r.error else "none"
+
+
 class RebootEventStore:
     """Persists reboot events derived from boot time so event-sourced health
     can merge them with error events (reference: pkg/host/event.go:44-85).
@@ -86,3 +115,26 @@ class RebootEventStore:
 
     def get_reboot_events(self, since: float) -> List[Event]:
         return [e for e in self._bucket.get(since) if e.name == EVENT_NAME_REBOOT]
+
+
+def reboot(use_systemctl: bool = True, dry_run: bool = False) -> Optional[str]:
+    """Reboot the machine (reference: pkg/host/reboot.go:46+). Returns error
+    string or None. Audited — this is a privileged remediation action."""
+    audit("reboot", dry_run=dry_run)
+    if dry_run:
+        return None
+    cmds = (["systemctl", "reboot"], ["shutdown", "-r", "now"], ["reboot"])
+    if not use_systemctl:
+        cmds = (["shutdown", "-r", "now"], ["reboot"])
+    last_err = ""
+    for argv in cmds:
+        r = run_command(list(argv), timeout=10.0)
+        if r.exit_code == 0:
+            return None
+        last_err = r.error or r.output.strip() or f"exit {r.exit_code}"
+    return f"all reboot commands failed: {last_err}"
+
+
+def stop_daemon_systemd(unit: str = "tpud.service") -> Optional[str]:
+    r = run_command(["systemctl", "stop", unit], timeout=30.0)
+    return None if r.exit_code == 0 else (r.error or r.output.strip())

@@ -2,8 +2,10 @@
 
 The port of ``gpud_tpu/scan.py``. Reference: pkg/scan/scan.go:33-118 —
 builds the accelerator instance and a GPUdInstance *without* an event store,
-runs Check() on every supported component and prints result tables. The
-host summary and provider detection come with the device-free daemon.
+runs Check() on every supported component and prints result tables.
+Check() implementations take their "read everything now" path when no event
+store is present (e.g. the error component reads the whole kmsg ring
+buffer). The host summary reads ``/proc`` where the reference reads psutil.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ from gpud_tpu_torch.components.base import (
     TpudInstance,
 )
 from gpud_tpu_torch import host as pkghost
+from gpud_tpu_torch import procfs
 from gpud_tpu_torch.api.v1.types import HealthStateType
 from gpud_tpu_torch.gpu.instance import new_instance
+from gpud_tpu_torch.providers import detect as provider_detect
 
 
 _HEALTH_GLYPH = {
@@ -56,6 +60,24 @@ def scan(
         registry.must_register(init_func)
 
     out.write(f"machine-id : {inst.machine_id}\n")
+    # machine summary + provider detect (reference: scan.go:62-73)
+    try:
+        vm = procfs.virtual_memory()
+        out.write(
+            f"host       : {pkghost.os_name()}, kernel {pkghost.kernel_version()}, "
+            f"{procfs.cpu_count()} cpus, {vm.total >> 30} GiB ram\n"
+        )
+    except (OSError, KeyError, ValueError):
+        pass  # no /proc/meminfo: no summary line, as the reference without psutil
+    try:
+        prov = provider_detect.detect(timeout=2.0)
+        if prov.provider != "unknown":
+            out.write(
+                f"provider   : {prov.provider} {prov.region} "
+                f"{prov.instance_type}".rstrip() + "\n"
+            )
+    except Exception:  # noqa: BLE001 — a detector thread or fallback bug
+        pass  # must not cost the check table
     out.write(f"gpu        : {'present' if gpu.gpu_lib_exists() else 'absent'}")
     if gpu.gpu_lib_exists():
         out.write(

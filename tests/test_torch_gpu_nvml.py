@@ -300,9 +300,10 @@ def test_all_links_inactive_are_reported_down():
 
 
 def test_link_counters_map_to_the_snapshot():
-    counters = {(0, N.NVML_NVLINK_ERROR_DL_REPLAY): 3, (0, N.NVML_NVLINK_ERROR_DL_RECOVERY): 2,
-                (0, N.NVML_NVLINK_ERROR_DL_CRC_FLIT): 10, (0, N.NVML_NVLINK_ERROR_DL_CRC_DATA): 5,
-                (0, N.NVML_NVLINK_ERROR_DL_ECC_DATA): 7}
+    counters = {(0, N.NVML_FI_DEV_NVLINK_ERROR_DL_REPLAY): 3,
+                (0, N.NVML_FI_DEV_NVLINK_ERROR_DL_RECOVERY): 2,
+                (0, N.NVML_FI_DEV_NVLINK_ERROR_DL_CRC): 15,
+                (0, N.NVML_FI_DEV_NVLINK_ECC_DATA_ERROR_COUNT_L0): 7}
     b, _ = backend(FakeGPU(links=[1, 1], link_counters=counters))
     first, second = b.nvlink_links()
     assert (first.replays, first.tx_errors, first.crc_errors, first.rx_errors) == (3, 2, 15, 7)

@@ -95,20 +95,30 @@ def test_the_daemon_path_loads_neither_torch_nor_jax(module):
 
 
 def test_a_scan_with_the_anomaly_check_on_auto_loads_no_torch(tmp_path):
-    # nine checks on the mock, the anomaly check scoring on "auto": with no
-    # CUDA context in the process it scores with numpy and imports no torch
+    # the 22 checks on the mock, the anomaly check scoring on "auto": with no
+    # CUDA context in the process it scores with numpy and imports no torch;
+    # psutil is hidden, so the host checks load and run without it, and the
+    # outside probes are stubbed (tests/torch_fakes.py)
     (tmp_path / "kmsg").write_text("")
     code = textwrap.dedent("""
         import io, json, sys
+        sys.modules["psutil"] = None
+        sys.path.insert(0, "tests")
+        import torch_fakes
+        torch_fakes.stub_port_probes()
         from gpud_tpu_torch.components.gpu.anomaly import GPUAnomalyComponent
         init = GPUAnomalyComponent.__init__
         def fast(self, inst):
             init(self, inst)
             self.burst_interval_seconds = 0.0
         GPUAnomalyComponent.__init__ = fast
+        from gpud_tpu_torch.components.all import all_components
         from gpud_tpu_torch.scan import scan
         results = {r.component_name(): r for r in scan(out=io.StringIO())}
-        print(json.dumps([len(results), results["accelerator-gpu-anomaly"].extra_info["backend"],
+        print(json.dumps([len(all_components()),
+                          sum(n.startswith("accelerator-gpu-") for n in results),
+                          sorted(n for n in ("os", "cpu", "memory", "disk") if n in results),
+                          results["accelerator-gpu-anomaly"].extra_info["backend"],
                           sorted(m for m in sys.modules if m.split(".")[0] == "torch")]))
     """)
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "TPUD_GPU_MOCK_ALL_SUCCESS": "1",
@@ -116,7 +126,7 @@ def test_a_scan_with_the_anomaly_check_on_auto_loads_no_torch(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout) == [9, "numpy", []]
+    assert json.loads(proc.stdout) == [22, 9, ["cpu", "disk", "memory", "os"], "numpy", []]
 
 
 def test_resolve_device_is_still_a_package_attribute():

@@ -1,9 +1,16 @@
-"""A fake NVML library in Python, for the port's tests of ``gpud_tpu_torch.gpu``.
+"""A fake NVML library in Python, for the port's tests of ``gpud_tpu_torch.gpu``,
+and stubs of the port's host probes.
 
 ``FakeNVML`` has NVML's functions as attributes. The binding calls them with
 the same ctypes arguments it passes the real ``libnvidia-ml.so.1`` (pointers
-made by ``ctypes.pointer``, string buffers), and each returns an NVML status.
-Every function name looked up is recorded in ``looked_up``.
+made by ``ctypes.pointer``, string buffers, arrays of field values), and each
+returns an NVML status. Every function name looked up is recorded in
+``looked_up``.
+
+``stub_port_probes`` replaces what the host checks and ``scan()`` reach
+outside the process: the edge RTTs, cloud provider detection and
+subprocesses. It imports nothing of the reference package, so a fresh
+interpreter can call it before it runs the port's ``scan``.
 """
 
 from __future__ import annotations
@@ -12,6 +19,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from gpud_tpu_torch.gpu import nvml as N
+
+# edge -> RTT in ms that the stubbed network-latency check measures
+EDGE_RTTS_MS = {"gcp-metadata": 0.9, "google-dns": 4.2, "cloudflare-dns": 3.1}
 
 
 @dataclass
@@ -32,8 +42,11 @@ class FakeGPU:
     # per link: 1 active, 0 inactive, None not supported; the walk past the
     # last entry returns NVML_ERROR_INVALID_ARGUMENT
     links: List[Optional[int]] = field(default_factory=lambda: [1] * 18)
-    # (link, counter) -> value; a missing counter is NOT_SUPPORTED
+    # (link, field id) -> value of a link-scoped field value; a missing one
+    # is NOT_SUPPORTED
     link_counters: Dict[Tuple[int, int], int] = field(default_factory=dict)
+    # (scope id, field id) -> the NVML status of that one field value entry
+    field_status: Dict[Tuple[int, int], int] = field(default_factory=dict)
     # function name -> NVML status to return instead of success
     errors: Dict[str, int] = field(default_factory=dict)
 
@@ -142,23 +155,33 @@ class FakeNVML:
         return self._uint("nvmlDeviceGetTemperature", handle, p, lambda g: g.temperature_c)
 
     def _nvmlDeviceGetFieldValues(self, handle, count, p):
+        """Fills each entry of the array (or the one pointed to) with its own
+        status: the memory temperature, or a link's counter by scope id."""
         gpu, rc = self._gpu(handle, "nvmlDeviceGetFieldValues")
         if rc != N.NVML_SUCCESS:
             return rc
-        fv = p.contents
-        assert count == 1 and fv.fieldId == N.NVML_FI_DEV_MEMORY_TEMP
-        vtype, value = gpu.memory_temperature
-        if vtype is None:  # the field itself is not supported
-            fv.nvmlReturn = N.NVML_ERROR_NOT_SUPPORTED
-            return N.NVML_SUCCESS
-        fv.nvmlReturn = N.NVML_SUCCESS
-        fv.valueType = vtype
-        member = {N.NVML_VALUE_TYPE_DOUBLE: "dVal", N.NVML_VALUE_TYPE_UNSIGNED_INT: "uiVal",
-                  N.NVML_VALUE_TYPE_UNSIGNED_LONG: "ulVal",
-                  N.NVML_VALUE_TYPE_UNSIGNED_LONG_LONG: "ullVal",
-                  N.NVML_VALUE_TYPE_SIGNED_LONG_LONG: "sllVal",
-                  N.NVML_VALUE_TYPE_SIGNED_INT: "siVal"}[vtype]
-        setattr(fv.value, member, value)
+        for i in range(count):
+            fv = p[i]
+            if fv.fieldId == N.NVML_FI_DEV_MEMORY_TEMP:
+                vtype, value = gpu.memory_temperature
+            else:
+                value = gpu.link_counters.get((fv.scopeId, fv.fieldId))
+                vtype = None if value is None else N.NVML_VALUE_TYPE_UNSIGNED_LONG_LONG
+            status = gpu.field_status.get((fv.scopeId, fv.fieldId))
+            if status is not None:
+                fv.nvmlReturn = status
+                continue
+            if vtype is None:  # the field itself is not supported
+                fv.nvmlReturn = N.NVML_ERROR_NOT_SUPPORTED
+                continue
+            fv.nvmlReturn = N.NVML_SUCCESS
+            fv.valueType = vtype
+            member = {N.NVML_VALUE_TYPE_DOUBLE: "dVal", N.NVML_VALUE_TYPE_UNSIGNED_INT: "uiVal",
+                      N.NVML_VALUE_TYPE_UNSIGNED_LONG: "ulVal",
+                      N.NVML_VALUE_TYPE_UNSIGNED_LONG_LONG: "ullVal",
+                      N.NVML_VALUE_TYPE_SIGNED_LONG_LONG: "sllVal",
+                      N.NVML_VALUE_TYPE_SIGNED_INT: "siVal"}[vtype]
+            setattr(fv.value, member, value)
         return N.NVML_SUCCESS
 
     def _nvmlDeviceGetPowerUsage(self, handle, p):
@@ -215,11 +238,31 @@ class FakeNVML:
         p.contents.value = gpu.links[link]
         return N.NVML_SUCCESS
 
-    def _nvmlDeviceGetNvLinkErrorCounter(self, handle, link, counter, p):
-        gpu, rc = self._gpu(handle, "nvmlDeviceGetNvLinkErrorCounter")
-        if rc != N.NVML_SUCCESS:
-            return rc
-        if (link, counter) not in gpu.link_counters:
-            return N.NVML_ERROR_NOT_SUPPORTED
-        p.contents.value = gpu.link_counters[(link, counter)]
-        return N.NVML_SUCCESS
+
+def no_binary(argv, timeout=None, env=None):
+    """``run_command`` for a host without the binary: what ``which``,
+    ``systemd-detect-virt`` and ``lspci`` give on a bare container."""
+    from gpud_tpu_torch.process import RunResult
+
+    return RunResult(exit_code=-1, error=f"[Errno 2] No such file or directory: {argv[0]!r}")
+
+
+def probe_stubs(netutil, detect, host, host_extra, rtts=None):
+    """(module, attribute, stub) for one package's outside probes."""
+    rtts = dict(EDGE_RTTS_MS if rtts is None else rtts)
+    return [
+        (netutil, "measure_edges", lambda edges=None, timeout=2.0: dict(rtts)),
+        (detect, "detect", lambda timeout=5.0: detect.DetectResult(provider="unknown")),
+        (host, "run_command", no_binary),
+        (host_extra, "run_command", no_binary),
+    ]
+
+
+def stub_port_probes(rtts=None) -> None:
+    """Stub the port's probes for the rest of the process."""
+    from gpud_tpu_torch import host, netutil
+    from gpud_tpu_torch.components import host_extra
+    from gpud_tpu_torch.providers import detect
+
+    for module, name, stub in probe_stubs(netutil, detect, host, host_extra, rtts):
+        setattr(module, name, stub)

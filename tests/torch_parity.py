@@ -5,10 +5,11 @@ things with different nouns. Every substitution between them is listed once,
 here, and the parity tests apply these tables to the reference's output
 before they compare it with the port's:
 
-- ``NOUNS``: reasons, descriptions and event messages;
+- ``NOUNS``: reasons, descriptions and event messages (``libtpu.so``, the
+  library check's target, becomes ``libnvidia-ml.so``);
 - ``TELEMETRY_FIELDS``, ``DEVICE_FIELDS``: the adapter's dataclass fields;
 - ``GAUGES``: metric names (the label ``chip`` becomes ``gpu``);
-- ``COMPONENTS``: component names;
+- ``COMPONENTS``: component names (the host checks keep theirs);
 - ``KNOBS``: the failure injector's knobs;
 - ``ACTIONS``: repair actions that name the accelerator;
 - ``UNITS``, ``DEVICE_NODES``: the runtime's systemd units and device nodes;
@@ -45,6 +46,7 @@ _LINK = re.compile(r"chip(\d+)/ici(\d+)")
 
 # (reference, port), applied in order
 NOUNS = [
+    ("libtpu.so", "libnvidia-ml.so"),
     ("direct libtpu mode", "direct driver mode"),
     ("TPU chips", "GPUs"),
     ("TPU chip", "GPU"),
@@ -100,6 +102,16 @@ GAUGES = {
     "tpud_tpu_device_holder_processes": "tpud_gpu_device_holder_processes",
     "tpud_tpu_kmsg_errors_total": "tpud_gpu_kmsg_errors_total",
 }
+# the host checks' gauges keep their names
+HOST_GAUGES = [
+    "tpud_cpu_usage_percent", "tpud_cpu_load_avg_1m", "tpud_cpu_load_avg_5m",
+    "tpud_cpu_load_avg_15m", "tpud_memory_total_bytes", "tpud_memory_used_bytes",
+    "tpud_memory_available_bytes", "tpud_memory_used_percent", "tpud_disk_total_bytes",
+    "tpud_disk_used_bytes", "tpud_disk_used_percent", "tpud_disk_io_error_events_total",
+    "tpud_os_file_descriptors_allocated", "tpud_os_file_descriptors_limit",
+    "tpud_os_uptime_seconds", "tpud_network_latency_seconds",
+]
+GAUGES.update({g: g for g in HOST_GAUGES})
 
 COMPONENTS = {
     "accelerator-tpu-temperature": "accelerator-gpu-temperature",
@@ -112,6 +124,10 @@ COMPONENTS = {
     "accelerator-tpu-error-kmsg": "accelerator-gpu-error-kmsg",
     "accelerator-tpu-anomaly": "accelerator-gpu-anomaly",
 }
+# the 13 host checks keep their names, in the reference's registration order
+HOST_COMPONENTS = ["os", "cpu", "memory", "disk", "fuse", "kernel-module", "library",
+                   "network-latency", "nfs", "pci", "containerd", "docker", "kubelet"]
+COMPONENTS.update({c: c for c in HOST_COMPONENTS})
 
 ACTIONS = {"CHECK_USER_APP_AND_TPU": "CHECK_USER_APP_AND_GPU"}
 
@@ -354,3 +370,77 @@ def assert_gauges_parity(ref_component: str, chips=None, links=None):
     ref = mapped_ref_gauges(ref_component, chips, links)
     assert port == ref
     return port
+
+
+# -- host checks ------------------------------------------------------------------
+
+def stub_host_probes(monkeypatch, rtts=None):
+    """Both packages' edge RTTs, provider detection and subprocesses, stubbed
+    alike: no test opens a socket to a public address or spawns a process."""
+    import gpud_tpu.components.host_extra as ref_host_extra
+    import gpud_tpu.host as ref_host
+    import gpud_tpu.netutil as ref_netutil
+    import gpud_tpu.providers.detect as ref_detect
+    import gpud_tpu_torch.components.host_extra as port_host_extra
+    import gpud_tpu_torch.host as port_host
+    import gpud_tpu_torch.netutil as port_netutil
+    import gpud_tpu_torch.providers.detect as port_detect
+    from torch_fakes import probe_stubs
+
+    for mods in ((ref_netutil, ref_detect, ref_host, ref_host_extra),
+                 (port_netutil, port_detect, port_host, port_host_extra)):
+        for module, name, stub in probe_stubs(*mods, rtts=rtts):
+            monkeypatch.setattr(module, name, stub)
+
+
+class FixedCPU:
+    """The port's ``procfs.CPUUsage`` with a fixed reading."""
+
+    value = 12.5
+
+    def __init__(self, path=""):
+        pass
+
+    def percent(self):
+        return self.value
+
+
+def stub_host_readers(monkeypatch, *, cpu=12.5, load=(0.5, 0.4, 0.3), cores=8,
+                      vm=(64 << 30, 48 << 30, 25.0), usage=(100 << 30, 40 << 30, 40.0),
+                      file_nr=(2048, 1 << 20), uptime=7200.0):
+    """The same host figures for both packages' CPU, memory, disk and OS
+    checks (and the scan's host line): psutil's functions for the
+    reference, ``procfs`` for the port. ``vm`` is (total, available,
+    percent), ``usage`` (total, used, percent) of every partition."""
+    import os
+
+    import psutil
+
+    import gpud_tpu.components.os_comp as ref_os
+    import gpud_tpu.host as ref_host
+    import gpud_tpu_torch.components.os_comp as port_os
+    import gpud_tpu_torch.host as port_host
+    from gpud_tpu_torch import procfs
+
+    total, avail, pct = vm
+    mem = procfs.VirtualMemory(total=total, available=avail, percent=pct,
+                               used=total - avail, free=avail)
+    parts = [procfs.Partition("/dev/vda1", "/", "ext4", "rw,relatime")]
+    du = procfs.DiskUsage(total=usage[0], used=usage[1], free=usage[0] - usage[1],
+                          percent=usage[2])
+    monkeypatch.setattr(psutil, "cpu_percent", lambda interval=None: cpu)
+    monkeypatch.setattr(psutil, "cpu_count", lambda logical=True: cores)
+    monkeypatch.setattr(psutil, "virtual_memory", lambda: mem)
+    monkeypatch.setattr(psutil, "disk_partitions", lambda all=False: parts)
+    monkeypatch.setattr(psutil, "disk_usage", lambda path: du)
+    monkeypatch.setattr(FixedCPU, "value", cpu)
+    monkeypatch.setattr(procfs, "CPUUsage", FixedCPU)
+    monkeypatch.setattr(procfs, "cpu_count", lambda: cores)
+    monkeypatch.setattr(procfs, "virtual_memory", lambda path=procfs.PROC_MEMINFO: mem)
+    monkeypatch.setattr(procfs, "disk_partitions", lambda all=False: parts)
+    monkeypatch.setattr(procfs, "disk_usage", lambda path: du)
+    monkeypatch.setattr(os, "getloadavg", lambda: load)
+    for mod in (ref_os, port_os):
+        monkeypatch.setattr(mod, "_read_file_nr", lambda: file_nr)
+    for mod in (ref_host, port_host):
+        monkeypatch.setattr(mod, "uptime_seconds", lambda: uptime)
