@@ -80,10 +80,27 @@ Phases, each printing its own lines:
              exceed the L2, with a device spin that keeps the host's
              wrapper time out of the window; beside it the kernel's time
              from torch.profiler, one launch alone after an L2 flush, and
-             the wrapper's host time per call.
+             the wrapper's host time per call;
+10. daemon - (after the host phase) the daemon's core on NVML, in a child
+             process that imports no torch: one state DB, one write-behind
+             writer shared by every store, the 22 checks registered and the
+             supported ones scheduled every 2 s with the watchdog on, the
+             metrics syncer and recorder, the remediation engine with its
+             default empty enforce list and executors that refuse; an Xid 79
+             line through kmsg to an Unhealthy check, one ledger transition
+             and one dry-run reboot_system audit row, each step's ms after the
+             write; set-healthy (2 transitions); NVML gauges in the metrics
+             table; RSS and CPU seconds per second over 20 s; per-check host
+             ms, dispatch lag, writer commits; shutdown (flush, WAL
+             checkpoint, close). Then, here: integrity_check, a restart that
+             adds no transition, the CLI's history and remediation, fleet_scan
+             on the card over the NVLink history the daemon wrote (one launch),
+             and the native library (native.build()) against its Python twins,
+             with µs per line and ms per scan of both; printed as the
+             ``{"daemon": ...}`` line.
 
-The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}`` and ``{"analytics": ...}``
-lines come before the ``{"kernels": [...]}``
+The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}`` and
+``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -92,8 +109,10 @@ exits non-zero without the ``ok`` line. Data comes from fixed seeds.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import errno
 import importlib.util
+import inspect
 import io
 import itertools
 import json
@@ -117,7 +136,7 @@ sys.path.insert(0, str(ROOT))
 
 from gpud_tpu_torch import fleet_scan as fleet_scan_mod  # noqa: E402
 from gpud_tpu_torch import host as host_mod  # noqa: E402
-from gpud_tpu_torch import netutil, procfs  # noqa: E402
+from gpud_tpu_torch import native, netutil, procfs  # noqa: E402
 from gpud_tpu_torch.components import base as base_mod  # noqa: E402
 from gpud_tpu_torch.components.host_extra import NFSComponent  # noqa: E402
 from gpud_tpu_torch.components.all import all_components  # noqa: E402
@@ -140,6 +159,8 @@ from gpud_tpu_torch.components.gpu.runtime import (  # noqa: E402
     GPURuntimeComponent,
 )
 from gpud_tpu_torch.eventstore import EventStore  # noqa: E402
+from gpud_tpu_torch.health_history import HealthLedger  # noqa: E402
+from gpud_tpu_torch.kmsg import deduper as kmsg_deduper  # noqa: E402
 from gpud_tpu_torch.kmsg import watcher as kmsg_watcher  # noqa: E402
 from gpud_tpu_torch.kmsg.syncer import SharedWatcher  # noqa: E402
 from gpud_tpu_torch.kmsg.writer import KmsgWriter  # noqa: E402
@@ -736,28 +757,10 @@ def check_scan(tel: dict, links: list, rows: list) -> dict:
     return reported
 
 
-def store_into_fleet_scan(workdir: Path, base, window: float = 3600.0) -> dict:
-    """Six one-minute samples of the card's links, ``gpu0/nvlink0`` injected
-    down in samples 3-4, through ``NVLinkStore`` into ``fleet_scan``."""
-    source = "nvml"
-    if not base.nvlink_links():
-        source = "mock"
-        line("adapter", "NVML reports no NVLink link state on this card: the store takes "
-                        "MockBackend's links (same kernel, same card)")
-        base = gpu_instance.MockBackend(accelerator_type=f"h100-sxm-{len(base.devices())}")
-    inj = FailureInjector()
-    inst = gpu_instance.InjectedInstance(base, inj)
-    db_path = workdir / "nvlink_host.db"
-    db = DB(str(db_path))
-    store = NVLinkStore(db)
-    now = float(int(time.time()))
-    store.time_now_fn = lambda: now
-    for k in range(1, ADAPTER_SAMPLES + 1):
-        inj.nvlink_links_down = ["gpu0/nvlink0"] if k in ADAPTER_DOWN else []
-        store.insert_snapshot(inst.nvlink_links(), ts=now - STEP_SECONDS * (ADAPTER_SAMPLES - k))
-    ref = store.scan(window)
-    db.close()
-
+def fleet_scan_of_store(db_path: Path, ref, window: float, now: float):
+    """``fleet_scan`` on the card over one host's NVLink store: it must launch
+    the kernel once, its per-link outputs must equal ``ref`` (the store's own
+    ``scan``), and its classes must equal ``device="cpu"``'s."""
     captured = []
     real = fleet_scan_mod.scan_links_packed
 
@@ -786,15 +789,41 @@ def store_into_fleet_scan(workdir: Path, base, window: float = 3600.0) -> dict:
         want = (r.drops, r.flaps, r.currently_down, r.samples, r.crc_delta)
         if ours != want:
             mismatches.append((name, ours, want))
-    if mismatches or len(names) != len(ref.links):
+    if mismatches or len(names) != len(ref.links) or not names:
         raise AssertionError(f"fleet_scan vs NVLinkStore.scan: {mismatches[:5]}, "
                              f"{len(names)} vs {len(ref.links)} links")
-    flapped = ref.links["gpu0/nvlink0"]
-    if (flapped.drops, flapped.flaps, flapped.currently_down) != (1, 1, False):
-        raise AssertionError(f"gpu0/nvlink0: {flapped}")
     cpu = fleet_scan([str(db_path)], window_seconds=window, now=now, device="cpu")
     if cpu["links"] != res["links"]:
         raise AssertionError("fleet_scan classes differ between the card and device='cpu'")
+    return res, launches, names
+
+
+def store_into_fleet_scan(workdir: Path, base, window: float = 3600.0) -> dict:
+    """Six one-minute samples of the card's links, ``gpu0/nvlink0`` injected
+    down in samples 3-4, through ``NVLinkStore`` into ``fleet_scan``."""
+    source = "nvml"
+    if not base.nvlink_links():
+        source = "mock"
+        line("adapter", "NVML reports no NVLink link state on this card: the store takes "
+                        "MockBackend's links (same kernel, same card)")
+        base = gpu_instance.MockBackend(accelerator_type=f"h100-sxm-{len(base.devices())}")
+    inj = FailureInjector()
+    inst = gpu_instance.InjectedInstance(base, inj)
+    db_path = workdir / "nvlink_host.db"
+    db = DB(str(db_path))
+    store = NVLinkStore(db)
+    now = float(int(time.time()))
+    store.time_now_fn = lambda: now
+    for k in range(1, ADAPTER_SAMPLES + 1):
+        inj.nvlink_links_down = ["gpu0/nvlink0"] if k in ADAPTER_DOWN else []
+        store.insert_snapshot(inst.nvlink_links(), ts=now - STEP_SECONDS * (ADAPTER_SAMPLES - k))
+    ref = store.scan(window)
+    db.close()
+    res, launches, names = fleet_scan_of_store(db_path, ref, window, now)
+    flapped = ref.links["gpu0/nvlink0"]
+    if (flapped.drops, flapped.flaps, flapped.currently_down) != (1, 1, False):
+        raise AssertionError(f"gpu0/nvlink0: {flapped}")
+    host = db_path.stem + "/"
     line("adapter", f"NVLinkStore ({source} links): {ADAPTER_SAMPLES} samples, "
                     f"{len(names)} links -> fleet_scan: {launches} launch, {res['summary']}; "
                     "drops, flaps, currently-down, samples and CRC deltas equal "
@@ -1550,6 +1579,596 @@ def phase_host(workdir: Path, smi_line: str, c1: dict) -> dict:
     return rec
 
 
+# -- 10. daemon ------------------------------------------------------------------
+
+# BASELINE.md: daemon RSS < 150 MB, held against the pages the daemon
+# dirtied. VmRSS has a ceiling of its own just above the 225.2 MB measured on
+# an H100 80GB HBM3 at 700 W, so any growth fails: the card's container counts
+# every page of a mapped file resident once one is touched
+# (``mapped_file_probe``), and NVML's init maps libcuda.so there, so VmRSS
+# does not meet the 150 MB on that machine (ROADMAP C3).
+DAEMON_RSS_BUDGET_MB = 150.0
+DAEMON_VMRSS_CEILING_MB = 230.0
+PROBE_FILE_MB = 16
+NATIVE_T = T_DAY  # one host's day (144 links) for the ragged scan's timing
+ERR_KMSG = GPUErrorKmsgComponent.NAME
+
+
+def mapped_file_probe(workdir: str, size_mb: int = PROBE_FILE_MB) -> dict:
+    """How this machine's kernel counts a mapped file in VmRSS: a file of
+    ``size_mb`` written under ``workdir``, mapped read-only, one byte read.
+    Linux counts the touched page and its readahead; a kernel that counts
+    the whole mapping shows ``size_mb``. Runs on any Linux host."""
+    import mmap as _mmap
+    import os as _os
+
+    def vmrss_kb():
+        for row in open("/proc/self/status"):
+            if row.startswith("VmRSS:"):
+                return int(row.split()[1])
+        raise AssertionError("no VmRSS in /proc/self/status")
+
+    path = _os.path.join(workdir, "mapped_file_probe.bin")
+    with open(path, "wb") as f:
+        f.write(_os.urandom(size_mb << 20))
+    fd = _os.open(path, _os.O_RDONLY)
+    try:
+        r0 = vmrss_kb()
+        m = _mmap.mmap(fd, size_mb << 20, prot=_mmap.PROT_READ)
+        r1 = vmrss_kb()
+        _ = m[0]
+        r2 = vmrss_kb()
+        m.close()
+    finally:
+        _os.close(fd)
+        _os.unlink(path)
+    return {"file_mb": size_mb, "mapped_mb": (r1 - r0) / 1024.0,
+            "one_byte_read_mb": (r2 - r0) / 1024.0}
+
+
+def daemon_child(workdir: str) -> dict:
+    """The daemon's core as ``Server`` composes it, without the server, on
+    NVML: run in a child process that imports no torch (``phase_daemon``
+    passes this function's source to ``python -c``, so it imports what it
+    uses itself). Prints its lines and returns its record."""
+    import json as _json
+    import os
+    import resource
+    import sys as _sys
+    import threading
+    import time as _time
+    from pathlib import Path as _Path
+
+    from gpud_tpu_torch import native as _native
+    from gpud_tpu_torch.components.base import _h_check_duration
+    from gpud_tpu_torch.config import default_config
+    from gpud_tpu_torch.daemon import Daemon
+    from gpud_tpu_torch.fault_injector import Injector, Request
+    from gpud_tpu_torch.process import RunResult
+    from gpud_tpu_torch.scheduler import core as sched_core
+    from gpud_tpu_torch.storage import checkpoint_wal
+
+    err_kmsg = "accelerator-gpu-error-kmsg"
+    poll_s = 2       # every check, the remediation scan and the metrics syncer
+    steady_s = 20.0  # the window of steady-state RSS and CPU
+
+    def say(msg):
+        print(f"[daemon] {msg}", flush=True)
+
+    def memory_mb():
+        """VmRSS, and from /proc/self/smaps the pages this process dirtied
+        (Private_Dirty + Shared_Dirty: heap, stacks, written data) and the
+        clean pages of mapped files. The card's container reports every page
+        of a mapped file resident (Rss equals the file's size, libcuda.so's
+        94 MB included), so VmRSS there is not what Linux would count; the
+        dirty pages are the daemon's own either way."""
+        status = dict(row.split(":", 1) for row in
+                      _Path("/proc/self/status").read_text().splitlines() if ":" in row)
+        out = {"vmrss_mb": int(status["VmRSS"].split()[0]) / 1024.0,
+               "dirty_mb": 0.0, "file_clean_mb": 0.0, "largest_files_mb": {}}
+        name = None
+        for row in _Path("/proc/self/smaps").read_text().splitlines():
+            parts = row.split()
+            if parts and "-" in parts[0] and not parts[0].endswith(":"):
+                name = parts[5] if len(parts) > 5 else "[anon]"
+            elif parts[:1] in (["Private_Dirty:"], ["Shared_Dirty:"]):
+                out["dirty_mb"] += int(parts[1]) / 1024.0
+            elif parts[:1] in (["Private_Clean:"], ["Shared_Clean:"]) and name.startswith("/"):
+                kb = int(parts[1])
+                out["file_clean_mb"] += kb / 1024.0
+                out["largest_files_mb"][name] = out["largest_files_mb"].get(name, 0.0) + kb / 1024.0
+        # each of the largest: its clean pages beside the file's size
+        out["largest_files_mb"] = {
+            _Path(f).name: [round(mb, 1), round(os.path.getsize(f) / 2**20, 1)]
+            for f, mb in sorted(out["largest_files_mb"].items(), key=lambda kv: -kv[1])[:4]
+            if os.path.exists(f)}
+        return out
+
+    def until(cond, what, timeout=60.0):
+        t0 = _time.perf_counter()
+        while not cond():
+            if _time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"timed out waiting for {what}")
+            _time.sleep(0.01)
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * (len(xs) - 1) + 0.5))] if xs else 0.0
+
+    w = _Path(workdir)
+    rec = {"vmrss_mb_at": {"imports": memory_mb()["vmrss_mb"]}}
+    cfg = default_config(data_dir=str(w), kmsg_path=str(w / "kmsg"), poll_interval_seconds=poll_s,
+                         remediation_interval_seconds=poll_s, scrape_interval_seconds=poll_s)
+    if cfg.validate() is not None:
+        raise AssertionError(f"default config: {cfg.validate()}")
+    bad = default_config(data_dir=str(w), scheduler_workers=0).validate()
+    if bad != "scheduler workers must be >= 1":
+        raise AssertionError(f"invalid config: {bad!r}")
+    rec["config"] = {"validate": None, "invalid_message": bad}
+
+    t_build = _time.perf_counter()
+    d = Daemon(cfg)
+    rec["vmrss_mb_at"]["construct"] = memory_mb()["vmrss_mb"]  # NVML's init included
+    # the machine is never rebooted and no unit restarted: recorders that refuse
+    calls = []
+
+    def refuse_reboot():
+        calls.append(["reboot"])
+        return "refused: the daemon phase reboots nothing"
+
+    def refuse_command(argv, timeout=0, env=None):
+        calls.append(list(argv))
+        return RunResult(exit_code=1, error="refused: the daemon phase restarts nothing")
+
+    d.remediation.executors.reboot_fn = refuse_reboot
+    d.remediation.executors.run_command_fn = refuse_command
+    marks = {}
+    transitions, audits = [], []
+    tx_seen, audit_seen = threading.Event(), threading.Event()
+
+    def on_tx(comp, frm, to, ts, reason):
+        transitions.append((comp, frm, to, reason, _time.perf_counter()))
+        if comp == err_kmsg:
+            tx_seen.set()
+
+    def on_audit(row):
+        audits.append((row, _time.perf_counter()))
+        if row["component"] == err_kmsg:
+            audit_seen.set()
+
+    d.health_ledger.on_transition = on_tx
+    d.remediation.audit.on_record = on_audit
+    # the reference's daemon leaves Config.poll_interval_seconds unread: each
+    # check keeps its class's cadence, so the phase sets the 2 s here
+    for comp in d.registry.all():
+        if hasattr(comp, "POLL_INTERVAL"):
+            comp.POLL_INTERVAL = float(poll_s)
+    t_start = _time.perf_counter()
+    d.start()
+    ready = d.scheduler.wait_first_runs(timeout=60.0)
+    if ready is None:
+        raise AssertionError("first runs did not complete")
+    rec["startup_ready_seconds"] = ready
+    rec["startup_wall_seconds"] = _time.perf_counter() - t_start
+    rec["construct_seconds"] = t_start - t_build
+    comps = [c.name() for c in d.registry.all()]
+    jobs = d.scheduler.job_names()
+    comp_jobs = sorted(j[len("component:"):] for j in jobs if j.startswith("component:"))
+    if len(comps) != 22 or comp_jobs != sorted(d.supported_names):
+        raise AssertionError(f"{len(comps)} checks registered, jobs for {comp_jobs}")
+    rec["checks_registered"] = len(comps)
+    rec["checks_scheduled"] = len(comp_jobs)
+    rec["not_supported"] = sorted(set(comps) - d.supported_names)
+    rec["jobs"] = jobs
+    say(f"{len(comps)} checks registered, {len(comp_jobs)} scheduled every {poll_s} s "
+        f"(not supported here: {rec['not_supported']}); {len(jobs)} jobs; startup ready in "
+        f"{ready:.4f} s")
+    if d.gpu_instance.__class__.__name__ != "NVMLBackend":
+        raise AssertionError(f"backend {d.gpu_instance.__class__.__name__}, not NVML")
+    # two cycles of every scheduled check
+    until(lambda: all(d.scheduler.get_job(f"component:{n}").runs >= 2
+                      for n in comp_jobs if n != err_kmsg), "two check cycles")
+
+    tx_seen.clear()
+    audit_seen.clear()
+    before = [t[:4] for t in transitions if t[0] == err_kmsg]
+    if before:
+        raise AssertionError(f"{err_kmsg} moved before the Xid: {before}")
+    t_write = _time.perf_counter()  # the write's own time counts
+    written = Injector(kmsg_path=str(w / "kmsg")).inject(Request(
+        kernel_message="NVRM: Xid (PCI:0000:18:00): 79, pid='<unknown>', name=<unknown>, "
+                       "GPU has fallen off the bus."))
+    if not written.ok:
+        raise AssertionError(f"kmsg write: {written.error}")
+    if not tx_seen.wait(30.0):
+        raise AssertionError("no transition after the Xid")
+    tx_seen.clear()
+    marks["ledger_transition_ms"] = (transitions[-1][-1] - t_write) * 1e3
+    # the ledger observes a check before the check caches its result
+    until(lambda: d.registry.get(err_kmsg).last_health_states()[0].health != "Healthy",
+          "the check's cached result", timeout=10.0)
+    marks["check_state_ms"] = (_time.perf_counter() - t_write) * 1e3
+    state = d.registry.get(err_kmsg).last_health_states()[0]
+    if state.health != "Unhealthy":
+        raise AssertionError(f"{err_kmsg}: {state.health} ({state.reason}) after the Xid; "
+                             f"transitions {[t[:4] for t in transitions]}")
+    if not audit_seen.wait(30.0):
+        raise AssertionError("no audit row after the Xid")
+    marks["audit_row_ms"] = (audits[-1][-1] - t_write) * 1e3
+    d.storage_writer.flush()
+    marks["committed_ms"] = (_time.perf_counter() - t_write) * 1e3
+    mine = [t for t in d.health_ledger.history(component=err_kmsg)]
+    rows = d.remediation.audit.read(component=err_kmsg)
+    if [(t["from"], t["to"]) for t in mine] != [("Healthy", "Unhealthy")] or \
+            [(r["action"], r["decision"], r["outcome"]) for r in rows] != \
+            [("reboot_system", "dry_run", "dry_run")]:
+        raise AssertionError(f"after the Xid: transitions {mine}, audit {rows}")
+    say(f"Xid 79 -> {err_kmsg} {state.health} ({state.reason}): 1 transition "
+        f"{marks['ledger_transition_ms']:.3f} ms after the kmsg write, 1 reboot_system row "
+        f"decided dry_run {marks['audit_row_ms']:.3f} ms after it, committed at "
+        f"{marks['committed_ms']:.3f} ms")
+    # another scan inside the cooldown: still one row
+    scans = d.scheduler.get_job("remediation-scan").runs
+    until(lambda: d.scheduler.get_job("remediation-scan").runs >= scans + 1, "a second scan")
+    d.registry.get(err_kmsg).set_healthy()
+    if not tx_seen.wait(30.0):
+        raise AssertionError("no transition after set-healthy")
+    d.storage_writer.flush()
+    mine = d.health_ledger.history(component=err_kmsg)
+    rows = d.remediation.audit.read(component=err_kmsg)
+    if len(mine) != 2 or mine[0]["to"] != "Healthy" or len(rows) != 1:
+        raise AssertionError(f"after set-healthy: transitions {mine}, audit {rows}")
+    rec["transitions"] = [(t["from"], t["to"], t["reason"]) for t in reversed(mine)]
+    rec["audit"] = [{k: r[k] for k in ("action", "suggested", "decision", "outcome", "detail")}
+                    for r in rows]
+    rec["other_transitions"] = [t[:4] for t in transitions if t[0] != err_kmsg]
+    rec["other_audit_rows"] = [
+        {k: r[k] for k in ("component", "action", "decision", "outcome")}
+        for r, _ in audits if r["component"] != err_kmsg]
+    say(f"set-healthy: 2 transitions {rec['transitions']}; other components: "
+        f"{len(rec['other_transitions'])} transitions, {len(rec['other_audit_rows'])} audit rows "
+        f"{rec['other_audit_rows']}")
+
+    # the syncer's NVML gauges in the metrics table
+    until(lambda: d.scheduler.get_job("metrics-syncer").runs >= 2, "two syncs")
+    d.storage_writer.flush()
+    gauges = {}
+    for name in ("tpud_gpu_temperature_celsius", "tpud_gpu_power_watts",
+                 "tpud_gpu_memory_used_bytes"):
+        n, last = d.db_rw.query_one(
+            "SELECT COUNT(*), MAX(value) FROM tpud_metrics_v0_1 WHERE name=?", (name,))
+        if not n:
+            raise AssertionError(f"no {name} rows in tpud_metrics_v0_1")
+        gauges[name] = {"rows": n, "max": last}
+    rec["metrics_rows"] = d.db_rw.query_one("SELECT COUNT(*) FROM tpud_metrics_v0_1")[0]
+    rec["nvml_gauges"] = gauges
+    say(f"metrics table: {rec['metrics_rows']} rows; {gauges}")
+
+    # steady state: CPU seconds over the window, VmRSS sampled through it
+    # (the container's /proc has no VmHWM, and getrusage's peak is the
+    # parent's, inherited across exec)
+    rss_samples = []
+    ru0, t0 = resource.getrusage(resource.RUSAGE_SELF), _time.perf_counter()
+    while _time.perf_counter() - t0 < steady_s:
+        _time.sleep(0.5)
+        rss_samples.append(int(_Path("/proc/self/statm").read_text().split()[1])
+                           * resource.getpagesize() / 2**20)
+    ru1, t1 = resource.getrusage(resource.RUSAGE_SELF), _time.perf_counter()
+    cpu = (ru1.ru_utime + ru1.ru_stime - ru0.ru_utime - ru0.ru_stime) / (t1 - t0)
+    mem = memory_mb()
+    rec["steady"] = {"window_s": t1 - t0, "cpu_s_per_s": cpu, **mem,
+                     "vmrss_peak_sampled_mb": max(rss_samples + [mem["vmrss_mb"]]),
+                     "threads": threading.active_count()}
+    rec["mapped_file_probe"] = mapped_file_probe(str(w))
+    say(f"steady state over {t1 - t0:.3f} s: {cpu:.5f} CPU s per s; VmRSS {mem['vmrss_mb']:.1f} MB "
+        f"(sampled peak {rec['steady']['vmrss_peak_sampled_mb']:.1f}; after the imports "
+        f"{rec['vmrss_mb_at']['imports']:.1f}, after the construction {rec['vmrss_mb_at']['construct']:.1f}), "
+        f"dirty (the daemon's own) {mem['dirty_mb']:.1f} MB, {mem['file_clean_mb']:.1f} MB clean "
+        f"pages of mapped files, the largest [clean MB, file MB] {mem['largest_files_mb']}; "
+        f"{rec['steady']['threads']} threads; one byte read of a mapped {PROBE_FILE_MB} MB file "
+        f"adds {rec['mapped_file_probe']['one_byte_read_mb']:.3f} MB to VmRSS")
+
+    # per-check host ms (the check-duration histogram), scheduler, writer
+    sums, counts = {}, {}
+    for _ts, name, labels, value in d.metrics_registry.gather(0):
+        if name == _h_check_duration.name + "_sum":
+            sums[labels["component"]] = value
+        elif name == _h_check_duration.name + "_count":
+            counts[labels["component"]] = value
+    rec["check_host_ms"] = {c: sums[c] / counts[c] * 1e3 for c in sorted(counts) if counts[c]}
+    lags = list(d.scheduler._lag_samples)
+    st = d.scheduler.stats()
+    rec["scheduler"] = {"workers": st["workers"], "jobs": st["jobs"],
+                        "dispatch_lag_p50_ms": pct(lags, 0.5) * 1e3,
+                        "dispatch_lag_p99_ms": pct(lags, 0.99) * 1e3, "dispatches": len(lags),
+                        "watchdog_fires": sum(v for _k, v in sched_core._c_watchdog.labels_values())}
+    ws = d.storage_writer.stats()
+    flushes = list(d.storage_writer._flush_samples)
+    rec["writer"] = {"commits": ws["commits"], "committed_ops": ws["committed_ops"],
+                     "ops_per_commit": ws["committed_ops"] / max(1, ws["commits"]),
+                     "flush_p50_ms": pct(flushes, 0.5) * 1e3, "flush_p99_ms": pct(flushes, 0.99) * 1e3,
+                     "dropped": ws["dropped_ops"]}
+    say(f"check host ms: {_json.dumps({k: round(v, 3) for k, v in rec['check_host_ms'].items()})}")
+    say(f"scheduler: {rec['scheduler']}; writer: {rec['writer']}")
+    if ws["dropped_ops"]:
+        raise AssertionError(f"the writer dropped {ws['dropped_ops']} ops")
+
+    err = d.registry.get(err_kmsg)
+    rec["native"] = {"available": _native.available(), "backend": _native.backend(),
+                     "path": _native.loaded_path(),
+                     "deduper": type(err.syncer.deduper).backend,
+                     "nvlink_store": d.registry.get("accelerator-gpu-nvlink").store.backend}
+    say(f"native: {rec['native']}")
+
+    # shutdown: flush, checkpoint, close
+    d.storage_writer.flush()
+    rec["checkpoint"] = checkpoint_wal(d.db_rw, d.storage_writer)
+    d.stop()
+    rec["refused_executor_calls"] = calls
+    rec["torch_loaded"] = sorted(m for m in _sys.modules if m.split(".")[0] == "torch")
+    rec["kmsg_latency_ms"] = marks
+    return rec
+
+
+def native_parity(store_db: Path, workdir: Path, smi_line: str) -> dict:
+    """The native library against its Python twins on this machine: the kmsg
+    parser on the corpus, the deduper in lockstep, the catalog prefilter
+    against its regex, the ragged scan against the Python walk on the
+    daemon's NVLink rows; then µs per line and ms per scan of each path, the
+    scan at one host's day (144 links x 1440 samples)."""
+    corpus = load_corpus()
+    lines = [ln for ls in corpus.ORGANIC.values() for ln in ls] + list(corpus.BENIGN)
+    records = [f"3,{1000 + i},{5_000_000 + 17 * i},-;{ln}" for i, ln in enumerate(lines)]
+    saved = (kmsg_watcher._native_parse, catalog._NATIVE_PREFILTER)
+    rec = {"lines": len(lines)}
+    try:
+        def parse_all(parser):
+            kmsg_watcher._native_parse = parser
+            return [dataclasses.astuple(kmsg_watcher.parse_line(r, 1.7e9)) for r in records]
+
+        py, nat = parse_all(None), parse_all(native.parse_kmsg)
+        if py != nat:
+            raise AssertionError("native kmsg parser differs from the Python one")
+        for name, parser in (("python", None), ("native", native.parse_kmsg)):
+            kmsg_watcher._native_parse = parser
+            rec[f"parse_us_per_line_{name}"] = host_ms(
+                lambda: [kmsg_watcher.parse_line(r, 1.7e9) for r in records]) * 1e3 / len(records)
+
+        rng = np.random.default_rng(SEED)
+        clock = [0.0]
+        dn = kmsg_deduper.NativeBackedDeduper(60.0, 64, time_now_fn=lambda: clock[0])
+        dp = kmsg_deduper.Deduper(60.0, 64, time_now_fn=lambda: clock[0])
+        for step in range(5000):
+            clock[0] += float(rng.exponential(0.2))
+            key, ts = lines[int(rng.integers(0, len(lines)))], float(rng.integers(0, 4))
+            if dn.seen_before(key, ts) != dp.seen_before(key, ts) or len(dn) != len(dp):
+                raise AssertionError(f"native deduper differs from the Python one at step {step}")
+        rec["deduper_lockstep_steps"] = 5000
+
+        if not native.prefilter_init(catalog.PREFILTER_TOKENS):
+            raise AssertionError("the native prefilter did not arm")
+        regex = [catalog._PREFILTER.search(ln) is not None for ln in lines]
+        if [native.prefilter_match(ln) for ln in lines] != regex:
+            raise AssertionError("native prefilter differs from the regex")
+        for name, armed in (("python", False), ("native", True)):
+            catalog._NATIVE_PREFILTER = armed
+            rec[f"match_us_per_line_{name}"] = host_ms(
+                lambda: [catalog.match(ln) for ln in lines]) * 1e3 / len(lines)
+
+        def both_scans(db_path, window, now):
+            db = DB(str(db_path))
+            store = NVLinkStore(db)
+            store.time_now_fn = lambda: now
+            out = {}
+            for name, enabled in (("python", False), ("native", True)):
+                store.native_enabled = enabled
+                out[name] = store.scan(window)
+                if store.backend != name:
+                    raise AssertionError(f"scan ran {store.backend}, not {name}")
+                out[f"{name}_ms"] = host_ms(lambda: store.scan(window), reps=3)
+            db.close()
+            if out["python"] != out["native"]:
+                raise AssertionError(f"native ragged scan differs from the Python walk on {db_path}")
+            return out
+
+        now = time.time()
+        daemon_scan = both_scans(store_db, 3600.0, now)
+        rec["daemon_store_links"] = len(daemon_scan["native"].links)
+        day_db = workdir / "native_day.db"
+        h = max(seeded_faults(NATIVE_T), key=lambda k: len(seeded_faults(NATIVE_T)[k]))
+        write_host_db(day_db, h, now, NATIVE_T)
+        day = both_scans(day_db, WINDOW_SECONDS, now)
+        rec["day_links"], rec["day_samples"] = len(day["native"].links), NATIVE_T
+        rec["scan_ms_python"], rec["scan_ms_native"] = day["python_ms"], day["native_ms"]
+    finally:
+        kmsg_watcher._native_parse, catalog._NATIVE_PREFILTER = saved
+    line("daemon", f"native parity: {len(lines)} corpus lines parsed equal (native, Python), "
+                   f"deduper lockstep over 5000 steps, prefilter equal to the regex on every "
+                   f"line, ragged scan equal on the daemon's {rec['daemon_store_links']} links and "
+                   f"on {rec['day_links']} x {NATIVE_T}")
+    line("daemon", f"native vs Python: parse {rec['parse_us_per_line_native']:.3f} / "
+                   f"{rec['parse_us_per_line_python']:.3f} us per line, catalog match "
+                   f"{rec['match_us_per_line_native']:.3f} / {rec['match_us_per_line_python']:.3f} "
+                   f"us per line, scan {rec['scan_ms_native']:.3f} / {rec['scan_ms_python']:.3f} ms "
+                   f"at {rec['day_links']} x {NATIVE_T} (host clock) [{smi_line}]")
+    return rec
+
+
+# nvmlDeviceGetFieldValues with the NVLink error fields of GPU 0's links,
+# its array placed so that it ends ``spare`` bytes before a page the process
+# may not touch: whether NVML stays inside the array (gpu/nvml.py
+# FIELD_VALUES_SPARE)
+FIELD_VALUES_GUARD = r"""
+import ctypes, mmap, sys
+from gpud_tpu_torch.gpu import nvml as N
+spare = int(sys.argv[1])
+nv = N.NVML()
+assert nv.init() == ""
+h = nv.handle(0)
+reqs = [(fid, link) for link in range(N.NVML_NVLINK_MAX_LINKS) for _c, fid in N.LINK_COUNTER_FIELDS]
+size = len(reqs) * ctypes.sizeof(N.FieldValue)
+pages = (size + spare) // mmap.PAGESIZE + 2
+m = mmap.mmap(-1, pages * mmap.PAGESIZE)
+base = ctypes.addressof(ctypes.c_char.from_buffer(m))
+guard = base + (pages - 1) * mmap.PAGESIZE
+libc = ctypes.CDLL(None)
+libc.mprotect.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+assert libc.mprotect(guard, mmap.PAGESIZE, 0) == 0
+arr = (N.FieldValue * len(reqs)).from_address(guard - spare - size)
+for _ in range(20):
+    for fv, (fid, link) in zip(arr, reqs):
+        fv.fieldId, fv.scopeId = fid, link
+    nv._call("nvmlDeviceGetFieldValues", h, len(reqs), arr)
+print(len(reqs), "fields, statuses", sorted({fv.nvmlReturn for fv in arr}), flush=True)
+"""
+
+
+def field_values_guard(spare_entries=(nvml_mod.FIELD_VALUES_SPARE,)) -> dict:
+    """The field-values call in a child, its array right before a guard page
+    with each count of spare entries: the binding's (the default, the smoke's
+    gate) must leave the child alive. Called by hand with ``(0, 1)`` it shows
+    the overrun itself: with no spare entry NVML 580 on the H100 touches the
+    guard page and the child dies of SIGSEGV (exit -11)."""
+    out = {}
+    for entries in spare_entries:
+        spare = entries * ctypes.sizeof(nvml_mod.FieldValue)
+        r = subprocess.run([sys.executable, "-c", FIELD_VALUES_GUARD, str(spare)], cwd=ROOT,
+                           capture_output=True, text=True, timeout=120)
+        out[spare] = {"rc": r.returncode, "out": r.stdout.strip()}
+        line("daemon", f"nvmlDeviceGetFieldValues, NVLink error fields, array {spare} bytes "
+                       f"before a guard page: exit {r.returncode}, {r.stdout.strip()}")
+    binding = nvml_mod.FIELD_VALUES_SPARE * ctypes.sizeof(nvml_mod.FieldValue)
+    if binding in out and out[binding]["rc"] != 0:
+        raise AssertionError(f"nvmlDeviceGetFieldValues faults with the binding's {binding} "
+                             f"spare bytes: {out}")
+    return {str(k): v["rc"] for k, v in out.items()}
+
+
+def phase_daemon(workdir: Path, smi_line: str) -> dict:
+    """The daemon's core on the card's machine: the native library built,
+    the daemon run in a child without torch (``daemon_child``), then the
+    state DB it left read again here: integrity, a restart that adds no
+    transition, the CLI, ``fleet_scan`` on the card over the NVLink history
+    the daemon wrote, and the native library against its Python twins."""
+    t_phase = time.perf_counter()
+    for env in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
+        os.environ.pop(env, None)
+    # built into the phase's own directory and named to this process and the
+    # child, so the checkout's build/native/ stays empty and later processes
+    # there keep the Python twins
+    t0 = time.perf_counter()
+    lib = native.build(workdir / "native")
+    build_s = time.perf_counter() - t0
+    os.environ["TPUD_NATIVE_LIB"] = str(lib)
+    try:
+        loaded = native.available() and native.loaded_path() == str(lib)
+    finally:
+        del os.environ["TPUD_NATIVE_LIB"]
+    if not loaded:
+        raise AssertionError(f"the native library built at {lib} does not load")
+    line("daemon", f"native.build(): {lib} in {build_s:.3f} s")
+    w = workdir / "daemon"
+    w.mkdir()
+    (w / "kmsg").touch()
+    code = "\n".join([
+        "import json, sys",
+        "from gpud_tpu_torch import netutil",
+        "from gpud_tpu_torch.providers import detect as provider_detect",
+        inspect.getsource(no_public_network),
+        "no_public_network()",
+        f"PROBE_FILE_MB = {PROBE_FILE_MB}",
+        inspect.getsource(mapped_file_probe),
+        inspect.getsource(daemon_child),
+        "print(json.dumps({'daemon_child': daemon_child(sys.argv[1])}), flush=True)",
+    ])
+    env = dict(os.environ, TPUD_KMSG_FILE_PATH=str(w / "kmsg"), TPUD_NATIVE_LIB=str(lib))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, str(w)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    out = proc.stdout.splitlines()
+    for row in out[:-1] if proc.returncode == 0 else out:
+        print(row, flush=True)
+    if proc.returncode != 0 or not out:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise AssertionError(f"the daemon child exited {proc.returncode}")
+    child = json.loads(out[-1])["daemon_child"]
+    if child["torch_loaded"]:
+        raise AssertionError(f"the daemon child loaded {child['torch_loaded']}")
+    if child["refused_executor_calls"]:
+        raise AssertionError(f"executors called: {child['refused_executor_calls']}")
+    if child["steady"]["dirty_mb"] > DAEMON_RSS_BUDGET_MB:
+        raise AssertionError(f"daemon memory {child['steady']} over the {DAEMON_RSS_BUDGET_MB} MB budget")
+    if child["steady"]["vmrss_peak_sampled_mb"] > DAEMON_VMRSS_CEILING_MB:
+        raise AssertionError(f"daemon VmRSS {child['steady']} over its {DAEMON_VMRSS_CEILING_MB} MB "
+                             f"ceiling")
+    if not (child["native"]["available"] and child["native"]["path"] == str(lib)
+            and child["native"]["deduper"] == "native"
+            and child["native"]["nvlink_store"] == "native"):
+        raise AssertionError(f"the daemon child ran without the native library: {child['native']}")
+
+    state = w / "tpud.state"
+    conn = sqlite3.connect(state)
+    try:
+        integrity = conn.execute("PRAGMA integrity_check").fetchone()[0]
+    finally:
+        conn.close()
+    if integrity != "ok":
+        raise AssertionError(f"integrity_check: {integrity}")
+    # the restart: a fresh ledger and one check of the error component
+    db = DB(str(state))
+    es = EventStore(db)
+    ledger = HealthLedger(db)
+    before = len(ledger.history())
+    comp = GPUErrorKmsgComponent(TpudInstance(
+        gpu_instance=gpu_instance.new_instance(), event_store=es,
+        reboot_event_store=host_mod.RebootEventStore(es), health_ledger=ledger))
+    cr = comp.check()
+    after = len(ledger.history())
+    db.close()
+    if after != before or cr.health_state_type() != HealthStateType.HEALTHY:
+        raise AssertionError(f"restart: {before} -> {after} transitions, {cr.health_state_type()}")
+    cli = {}
+    for sub in ("history", "remediation"):
+        r = subprocess.run([sys.executable, "-m", "gpud_tpu_torch", sub, "--json",
+                            "--component", ERR_KMSG, "--data-dir", str(w)],
+                           cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
+        cli[sub] = json.loads(r.stdout)
+    if [(t["from"], t["to"]) for t in cli["history"]["transitions"]] != [
+            ("Unhealthy", "Healthy"), ("Healthy", "Unhealthy")] or \
+            [(a["action"], a["decision"]) for a in cli["remediation"]["attempts"]] != [
+            ("reboot_system", "dry_run")]:
+        raise AssertionError(f"CLI on the daemon's state DB: {cli}")
+
+    # fleet_scan on the card over the NVLink history this daemon wrote
+    now = time.time()
+    sdb = DB(str(state))
+    store = NVLinkStore(sdb)
+    store.time_now_fn = lambda: now
+    ref = store.scan(3600.0)
+    sdb.close()
+    res, launches, names = fleet_scan_of_store(state, ref, 3600.0, now)
+    line("daemon", f"restart: a fresh HealthLedger and one check, {before} -> {after} "
+                   f"transitions; integrity_check {integrity}; CLI history and remediation "
+                   f"--json show 2 transitions and the dry-run row; fleet_scan over the daemon's "
+                   f"{len(names)} links of {max(s.samples for s in ref.links.values())} samples: "
+                   f"{launches} launch, {res['summary']}, equal to NVLinkStore.scan and "
+                   f"device='cpu'")
+    parity = native_parity(state, workdir, smi_line)
+    guard = field_values_guard()
+
+    rec = {"card": smi_line, **child, "native_build_s": build_s, "child_wall_s": child_s,
+           "integrity_check": integrity, "restart_new_transitions": after - before,
+           "cli_history_transitions": len(cli["history"]["transitions"]),
+           "cli_remediation_rows": len(cli["remediation"]["attempts"]),
+           "fleet_scan": {"links": len(names), "launches": launches, "summary": res["summary"]},
+           "packed_scan_launches": launches, "native_parity": parity,
+           "field_values_guard_rc_by_spare_bytes": guard,
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"daemon": rec}), flush=True)
+    return rec
+
+
 # -- 8. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
@@ -1936,6 +2555,7 @@ def main() -> int:
         adapter = phase_adapter(workdir, smi)
         phase_health(workdir, smi)
         phase_host(workdir, smi, adapter["c1"])
+        daemon = phase_daemon(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()
@@ -1948,7 +2568,8 @@ def main() -> int:
         "source": "gpud_tpu_torch/csrc/packed_scan.cu",
         "replaces": "gpud_tpu/ops/pallas_scan.py:48",
         "launches": fleet["launches"],
-        "launches_by_path": {"fleet": fleet["launches"], "adapter": adapter["launches"]},
+        "launches_by_path": {"fleet": fleet["launches"], "adapter": adapter["launches"],
+                             "daemon": daemon["packed_scan_launches"]},
         "max_abs_err": max_err,
         "ms": day["ms"],
         "plain_ms": day["plain_ms"],

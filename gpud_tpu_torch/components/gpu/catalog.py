@@ -41,10 +41,12 @@ remap from NVML.
 from __future__ import annotations
 
 import re
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Pattern, Tuple
 
 from gpud_tpu_torch.api.v1.types import EventType, RepairActionType
+from gpud_tpu_torch import native as _native
 
 
 @dataclass(frozen=True)
@@ -418,6 +420,10 @@ class MatchedError:
 # single coarse-token scan rejects them without walking every pattern.
 # Every catalog pattern's alternatives are anchored by at least one of
 # these tokens; tests assert the invariant over the organic-line corpus.
+# The scan itself runs in the native library when it is loaded
+# (native/tpud_native.cpp tpud_prefilter_match — a case-folded substring
+# sweep, no regex engine per line); the regex below is the fallback and
+# the parity oracle.
 PREFILTER_TOKENS = [
     "xid", "nvrm", "nvidia", "gpu-err", "edac", "mce", "machine", "pcie",
     "aer", "dmar", "amd-vi", "iommu", "vrm", "voltage", "power", "memory",
@@ -430,11 +436,30 @@ _PREFILTER = re.compile(
     "|".join(re.escape(t) for t in PREFILTER_TOKENS), re.IGNORECASE
 )
 
+# the native fast path, armed on the first match when the library loads
+# (importing opens no library; absence is fine). Arming replaces the C
+# side's token set, so it happens once, under the lock.
+_NATIVE_PREFILTER: Optional[bool] = None
+_ARM_LOCK = threading.Lock()
+
+
+def _prefilter_hit(line: str) -> bool:
+    global _NATIVE_PREFILTER
+    if _NATIVE_PREFILTER is None:
+        with _ARM_LOCK:
+            if _NATIVE_PREFILTER is None:
+                _NATIVE_PREFILTER = _native.prefilter_init(PREFILTER_TOKENS)
+    if _NATIVE_PREFILTER:
+        hit = _native.prefilter_match(line)
+        if hit is not None:
+            return hit
+    return _PREFILTER.search(line) is not None
+
 
 def match(line: str, bdf_to_index: Optional[Dict[PCIKey, int]] = None) -> Optional[MatchedError]:
     """Match one kmsg line against the catalog (first hit wins; catalog is
     ordered most-specific-first within each class)."""
-    if _PREFILTER.search(line) is None:
+    if not _prefilter_hit(line):
         return None
     for entry in CATALOG:
         if entry.pattern.search(line):

@@ -15,8 +15,6 @@ Snapshot rows are (ts, link, state, counters...); the scan computes per-link:
 
 The tables keep the reference's names and schema, so the rows this store
 writes are what ``fleet_scan`` reads (this package's and ``gpud_tpu``'s).
-The scan is the pure-Python walk; the reference's native ragged scan comes
-with the native library, in the device-free daemon's slice.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from gpud_tpu_torch import native
 from gpud_tpu_torch.gpu.instance import LinkState, NVLinkSnapshot
 from gpud_tpu_torch.sqlite import DB
 
@@ -71,6 +70,8 @@ class NVLinkStore:
         self.db = db
         self.retention_seconds = retention_seconds
         self.time_now_fn = time.time
+        self.native_enabled = True  # tests flip this off to force parity runs
+        self.backend = ""  # "native" or "python": the last scan's walk
         db.execute(
             f"""CREATE TABLE IF NOT EXISTS {TABLE} (
                 ts REAL NOT NULL,
@@ -150,7 +151,13 @@ class NVLinkStore:
     # -- scan --------------------------------------------------------------
     def scan(self, window_seconds: float) -> ScanResult:
         """Walk each link's snapshots in the window (post-tombstone) and
-        classify drops/flaps (reference: IB store Scan marks drops/flaps)."""
+        classify drops/flaps (reference: IB store Scan marks drops/flaps).
+
+        The transition/delta walk runs in the native C++ library when it is
+        loaded (native/tpud_native.cpp tpud_scan_links_ragged — one batched
+        pass over all links), with the pure-Python walk as the always-there
+        fallback; tests assert the two paths agree.
+        """
         now = self.time_now_fn()
         start = now - window_seconds
         res = ScanResult(window_start=start)
@@ -162,7 +169,8 @@ class NVLinkStore:
         all_tombstones = self.tombstones()
         global_tombstone = all_tombstones.get("*", 0.0)
 
-        # group per link, dropping tombstone-masked rows up front
+        # group per link, dropping tombstone-masked rows up front so both
+        # scan backends see identical sequences
         order: List[str] = []
         seqs: Dict[str, list] = {}
         tombstone = 0.0
@@ -181,7 +189,11 @@ class NVLinkStore:
         # them so they don't read as "down since forever"
         order = [l for l in order if seqs[l]]
 
-        classified = self._classify_python(order, seqs)
+        classified = self._classify_native(order, seqs)
+        self.backend = "native"
+        if classified is None:
+            classified = self._classify_python(order, seqs)
+            self.backend = "python"
 
         for link in order:
             seq = seqs[link]
@@ -222,6 +234,37 @@ class NVLinkStore:
                         flaps += 1
                 prev_state = state
             out[link] = (drops, flaps, state == 0, error_delta, crc_delta)
+        return out
+
+    def _classify_native(self, order: List[str], seqs: Dict[str, list]) -> Optional[Dict[str, tuple]]:
+        """Batched C++ scan; None when the native library is absent."""
+        if not self.native_enabled or not order:
+            return None if order else {}
+        if not native.available():
+            return None
+        states: List[int] = []
+        errs: List[int] = []
+        crcs: List[int] = []
+        offsets: List[int] = [0]
+        for link in order:
+            for _ts, state, err, crc in seqs[link]:
+                states.append(1 if state == 1 else 0)
+                errs.append(err)
+                crcs.append(crc)
+            offsets.append(len(states))
+        both = native.scan_links_ragged2(states, errs, crcs, offsets)
+        if both is None:
+            return None
+        by_err, by_crc = both
+        out: Dict[str, tuple] = {}
+        for i, link in enumerate(order):
+            out[link] = (
+                by_err[i]["drops"],
+                by_err[i]["flaps"],
+                by_err[i]["currently_down"],
+                by_err[i]["counter_delta"],
+                by_crc[i]["counter_delta"],
+            )
         return out
 
     def link_names(self) -> List[str]:

@@ -1,5 +1,5 @@
 """Dedup cache for kmsg-derived events (reference: pkg/kmsg/deduper.go);
-the port of ``gpud_tpu/kmsg/deduper.py``, Python cache only.
+the port of ``gpud_tpu/kmsg/deduper.py``.
 
 When the daemon re-reads the ring buffer (restart, scan after daemon) the
 same line must not produce duplicate events; the cache remembers seen
@@ -18,6 +18,8 @@ DEFAULT_MAX_ENTRIES = 4096
 
 
 class Deduper:
+    backend = "python"
+
     def __init__(
         self,
         ttl_seconds: float = DEFAULT_TTL,
@@ -63,3 +65,40 @@ class Deduper:
     def __len__(self) -> int:
         with self._mu:
             return len(self._seen)
+
+
+class NativeBackedDeduper:
+    """Same ``seen_before`` contract over the C++ TTL cache
+    (native/tpud_native.cpp) — the product fast path; parity with the
+    Python Deduper is asserted in tests (incl. lockstep LRU eviction)."""
+
+    backend = "native"
+
+    def __init__(
+        self,
+        ttl_seconds: float = DEFAULT_TTL,
+        max_entries: int = DEFAULT_MAX_ENTRIES,
+        time_now_fn: Callable[[], float] = time.time,
+    ) -> None:
+        from gpud_tpu_torch import native
+
+        self._nd = native.NativeDeduper(ttl_seconds, max_entries)
+        self.time_now_fn = time_now_fn
+        self._mu = threading.Lock()  # the C++ cache is not thread-safe
+
+    def seen_before(self, message: str, ts: float) -> bool:
+        with self._mu:
+            return self._nd.seen(f"{int(ts)}|{message}", self.time_now_fn())
+
+    def __len__(self) -> int:
+        with self._mu:
+            return len(self._nd)
+
+
+def default_deduper():
+    """The native cache when the library is loaded, else the Python one."""
+    from gpud_tpu_torch import native
+
+    if native.available():
+        return NativeBackedDeduper()
+    return Deduper()

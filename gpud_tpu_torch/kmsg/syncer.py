@@ -16,7 +16,7 @@ from typing import Callable, List, Optional
 
 from gpud_tpu_torch.api.v1.types import Event
 from gpud_tpu_torch.eventstore import Bucket
-from gpud_tpu_torch.kmsg.deduper import Deduper
+from gpud_tpu_torch.kmsg.deduper import default_deduper
 from gpud_tpu_torch.kmsg.watcher import Message, Watcher
 from gpud_tpu_torch.log import get_logger
 
@@ -39,7 +39,7 @@ class Syncer:
     ) -> None:
         self.match_fn = match_fn
         self.bucket = bucket
-        self.deduper = deduper or Deduper()
+        self.deduper = deduper or default_deduper()
         self.on_event = on_event
 
     def process(self, msg: Message) -> Optional[Event]:

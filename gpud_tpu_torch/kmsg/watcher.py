@@ -26,10 +26,23 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
+from gpud_tpu_torch import native
 from gpud_tpu_torch.inotify import InotifyWatch as _InotifyWatch
 from gpud_tpu_torch.log import get_logger
 
 logger = get_logger(__name__)
+
+# native fast path, resolved on the first parse (importing opens no library):
+# native.parse_kmsg when the library loads (native.build() makes it), else None
+_UNRESOLVED = object()
+_native_parse = _UNRESOLVED
+
+
+def _native_parser():
+    global _native_parse
+    if _native_parse is _UNRESOLVED:
+        _native_parse = native.parse_kmsg if native.available() else None
+    return _native_parse
 
 DEFAULT_KMSG_PATH = "/dev/kmsg"
 ENV_KMSG_PATH = "TPUD_KMSG_FILE_PATH"
@@ -69,9 +82,27 @@ class Message:
 def parse_line(line: str, boot_unix: float = 0.0) -> Optional[Message]:
     """Parse one /dev/kmsg record line; None for continuation/garbage lines.
 
-    The reference's Python parser, which it keeps as the parity oracle of
-    its native one; the port has no native parser.
+    Uses the native C++ parser when it is loaded (native/tpud_native.cpp,
+    through gpud_tpu_torch.native); the Python path below is the parity
+    oracle and the fallback. As in the reference, the native parser clamps
+    a field above 2^63 - 1 where the Python one does not. Unlike the
+    reference, the record's trailing newline (every /dev/kmsg read ends in
+    one) is stripped before either parser, so the native message equals
+    the Python one.
     """
+    parser = _native_parser()
+    if parser is not None:
+        line = line.rstrip("\n")
+        parsed = parser(line)
+        if parsed is None:
+            return None
+        prio, fac, seq, ts_us, msg = parsed
+        m = Message(
+            priority=prio, facility=fac, sequence=seq,
+            timestamp_us=ts_us, message=msg, raw=line,
+        )
+        m.time = boot_unix + ts_us / 1e6 if boot_unix > 0 else time.time()
+        return m
     if not line or line.startswith(" "):
         return None
     line = line.rstrip("\n")

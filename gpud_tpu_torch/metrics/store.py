@@ -1,28 +1,40 @@
-"""Metrics SQLite time-series store: the store of ``gpud_tpu/metrics/store.py``.
+"""Metrics SQLite time-series store + scraper + syncer + recorder; the port
+of ``gpud_tpu/metrics/store.py``.
 
-Reference: pkg/metrics/store — the middle stage of the three-stage
+Reference: pkg/metrics/{scraper,store,syncer,recorder} — the three-stage
 pipeline (SURVEY §5.5): components set gauges in the registry → the syncer
 scrapes once a minute into SQLite with retention purge → /v1/metrics and
 the session serve history from the store. The anomaly component reads its
-telemetry windows from here. The syncer, the self-metrics recorder and the
-write-behind BatchWriter come with the device-free daemon, so the port
-writes synchronously unless a caller passes a ``writer``.
+telemetry windows from here.
 """
 
 from __future__ import annotations
 
 import json
-from typing import List, Optional
+import threading
+import time
+from typing import Dict, List, Optional
 
 from gpud_tpu_torch.api.v1.types import Metric
+from gpud_tpu_torch.log import get_logger
+from gpud_tpu_torch.metrics.registry import Registry
 from gpud_tpu_torch.sqlite import DB
+from gpud_tpu_torch import sqlite as sqlite_mod
+
+logger = get_logger(__name__)
 
 TABLE = "tpud_metrics_v0_1"
 
 DEFAULT_RETENTION = 3 * 3600  # 3h (reference: pkg/config/default.go:26)
+SCRAPE_INTERVAL = 60.0        # 1m  (reference: pkg/server/server.go:231-239)
+RECORDER_INTERVAL = 15 * 60.0 # 15m (reference: pkg/server/server.go:241)
 
 # metric-name prefix → component attribution for /v1/metrics grouping
 COMPONENT_LABEL = "component"
+
+# write-behind contract (tools/storage_lint.py): these methods must route
+# through the BatchWriter, never commit per-row via db.execute directly
+HOT_WRITE_METHODS = ("record",)
 
 
 class MetricsStore:
@@ -123,3 +135,149 @@ class MetricsStore:
         return self.db.execute(
             f"DELETE FROM {TABLE} WHERE unix_seconds<?", (int(before),)
         ).rowcount
+
+
+class Syncer:
+    """Every minute: scrape registry → store, purge older than retention
+    (reference: pkg/metrics/syncer/syncer.go:22-50, wired at
+    pkg/server/server.go:231-239)."""
+
+    def __init__(
+        self,
+        registry: Registry,
+        store: MetricsStore,
+        interval_seconds: float = SCRAPE_INTERVAL,
+    ) -> None:
+        self.registry = registry
+        self.store = store
+        self.interval = interval_seconds
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._job = None
+        self.time_now_fn = time.time
+
+    def sync_once(self) -> int:
+        rows = self.registry.gather(self.time_now_fn())
+        self.store.record(rows)
+        self.store.purge(self.time_now_fn() - self.store.retention_seconds)
+        return len(rows)
+
+    def start(self, scheduler=None) -> None:
+        """On the unified scheduler when given (the daemon path; zero
+        threads), else the legacy dedicated thread."""
+        if scheduler is not None:
+            if self._job is None:
+                self._job = scheduler.add_job(
+                    "metrics-syncer",
+                    self.sync_once,
+                    interval=self.interval,
+                    initial_delay=self.interval,  # scrape-at-boot is noise
+                )
+            return
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._loop, name="tpud-metrics-syncer", daemon=True
+        )
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.sync_once()
+            except Exception:  # noqa: BLE001
+                logger.exception("metrics sync failed")
+
+    def close(self) -> None:
+        if self._job is not None:
+            self._job.cancel()
+            self._job = None
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+
+
+class SelfMetricsRecorder:
+    """tpud self-metrics: fd usage, DB size, sqlite op timings, vacuum
+    seconds, every 15m (reference: pkg/metrics/recorder/gpud_metrics.go:14-60)."""
+
+    def __init__(
+        self,
+        registry: Registry,
+        db: DB,
+        interval_seconds: float = RECORDER_INTERVAL,
+    ) -> None:
+        self.db = db
+        self.interval = interval_seconds
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._job = None
+        self.g_db_size = registry.gauge(
+            "tpud_sqlite_db_size_bytes", "state DB size in bytes"
+        )
+        self.g_fds = registry.gauge("tpud_file_descriptors", "open fd count of tpud")
+        self.g_select_secs = registry.gauge(
+            "tpud_sqlite_select_seconds_total", "cumulative sqlite select seconds"
+        )
+        self.g_write_secs = registry.gauge(
+            "tpud_sqlite_insert_update_delete_seconds_total",
+            "cumulative sqlite write seconds",
+        )
+        self.g_vacuum_secs = registry.gauge(
+            "tpud_sqlite_vacuum_seconds_total", "cumulative sqlite vacuum seconds"
+        )
+
+    def record_once(self) -> None:
+        try:
+            self.g_db_size.set(self.db.size_bytes())
+        except Exception:  # noqa: BLE001
+            pass
+        self.g_fds.set(_open_fd_count())
+        s = sqlite_mod.stats()
+        self.g_select_secs.set(s["select_seconds"])
+        self.g_write_secs.set(s["insert_update_delete_seconds"])
+        self.g_vacuum_secs.set(s["vacuum_seconds"])
+
+    def start(self, scheduler=None) -> None:
+        if scheduler is not None:
+            if self._job is None:
+                # first record runs on the pool (part of startup
+                # readiness), then every 15m
+                self._job = scheduler.add_job(
+                    "self-metrics-recorder", self.record_once,
+                    interval=self.interval,
+                )
+            return
+        if self._thread is not None:
+            return
+        self.record_once()
+        self._thread = threading.Thread(
+            target=self._loop, name="tpud-self-metrics", daemon=True
+        )
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.record_once()
+            except Exception:  # noqa: BLE001
+                logger.exception("self-metrics record failed")
+
+    def close(self) -> None:
+        if self._job is not None:
+            self._job.cancel()
+            self._job = None
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+
+
+def _open_fd_count() -> int:
+    try:
+        import os
+
+        return len(os.listdir("/proc/self/fd"))
+    except OSError:
+        return -1

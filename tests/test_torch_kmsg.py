@@ -59,8 +59,10 @@ NATIVE_PARSE = ref_watcher._native_parse
 def fixed_boot(monkeypatch):
     monkeypatch.setattr(ref_watcher, "boot_time", lambda: BOOT)
     monkeypatch.setattr(watcher, "boot_time", lambda: BOOT)
-    # the reference's Python parser: the parity oracle of its native one
+    # both Python parsers: the parity oracles of the native one
+    # (tests/test_torch_native.py holds the port's native parser to them)
     monkeypatch.setattr(ref_watcher, "_native_parse", None)
+    monkeypatch.setattr(watcher, "_native_parse", None)
 
 
 @pytest.mark.parametrize("i", range(len(LINES)))

@@ -8,6 +8,8 @@ as a call's is, so one refused field hides no other. The fake NVML
 that move reach the NVLink check's counter step and the store's columns as
 the reference's ICI counters do on the same scenario."""
 
+import ctypes
+
 import pytest
 
 from gpud_tpu.components.base import TpudInstance as RefTpud
@@ -23,7 +25,7 @@ from gpud_tpu_torch.gpu import nvml as N
 from gpud_tpu_torch.gpu.instance import NVMLBackend
 from gpud_tpu_torch.sqlite import DB
 
-from torch_fakes import FakeGPU, FakeNVML
+from torch_fakes import FakeGPU, FakeNVML, _Fn
 from torch_parity import link_name, nouns
 
 REPLAY, RECOVERY, CRC = (N.NVML_FI_DEV_NVLINK_ERROR_DL_REPLAY,
@@ -219,3 +221,26 @@ def test_counters_that_move_reach_the_counter_step_and_the_store(tmp_path):
         ref.close()
         port_db.close()
         ref_db.close()
+
+
+@pytest.mark.parametrize("n", [1, 4, 66])
+def test_the_field_values_array_keeps_a_spare_entry_past_the_count(n):
+    # driver 580's NVML touches memory just past the last link-scoped entry
+    # (a guard page there faults inside the call on the H100): the binding
+    # allocates a spare entry and gives NVML the count of the requests only
+    seen = []
+
+    class Lib:
+        def __init__(self):
+            self.nvmlDeviceGetFieldValues = _Fn(self._fv)
+
+        def _fv(self, handle, count, values):
+            seen.append((count, ctypes.sizeof(values)))
+            for i in range(count + N.FIELD_VALUES_SPARE):
+                values[i].nvmlReturn = N.NVML_ERROR_NOT_SUPPORTED
+            return N.NVML_SUCCESS
+
+    out = N.NVML(Lib()).field_values(ctypes.c_void_p(1), [(REPLAY, k) for k in range(n)])
+    assert seen == [(n, (n + N.FIELD_VALUES_SPARE) * ctypes.sizeof(N.FieldValue))]
+    assert len(out) == n and all(fv.fieldId == REPLAY for fv in out)
+    assert [fv.scopeId for fv in out] == list(range(n))

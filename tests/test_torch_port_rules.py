@@ -77,6 +77,15 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.host",
     "gpud_tpu_torch.process",
     "gpud_tpu_torch.inotify",
+    "gpud_tpu_torch.config",
+    "gpud_tpu_torch.scheduler",
+    "gpud_tpu_torch.storage",
+    "gpud_tpu_torch.health_history",
+    "gpud_tpu_torch.remediation",
+    "gpud_tpu_torch.native",
+    "gpud_tpu_torch.version",
+    "gpud_tpu_torch.sdnotify",
+    "gpud_tpu_torch.daemon",
 ])
 def test_the_daemon_path_loads_neither_torch_nor_jax(module):
     # the daemon's modules keep torch (the CUDA runtime) off its import path
@@ -92,6 +101,37 @@ def test_the_daemon_path_loads_neither_torch_nor_jax(module):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["gpud_tpu_torch.native",
+                                    "gpud_tpu_torch.components.gpu.catalog",
+                                    "gpud_tpu_torch.daemon"])
+def test_importing_the_native_library_s_users_compiles_nothing(module, tmp_path):
+    # the import searches for the library and starts no process: only
+    # native.build() runs the compiler, and the build dir gains nothing
+    code = textwrap.dedent(f"""
+        import json, subprocess
+        calls = []
+        def refuse(*a, **k):
+            calls.append(str(a[0] if a else k.get("args")))
+            raise AssertionError("a process was started at import")
+        subprocess.run = subprocess.Popen = refuse
+        import {module}
+        from gpud_tpu_torch import native
+        listing = sorted(p.name for p in native.BUILD_DIR.glob("*"))
+        print(json.dumps([calls, native.backend(), listing]))
+    """)
+    build_dir = REPO / "build" / "native"
+    before = sorted(p.name for p in build_dir.glob("*"))
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
+           "TPUD_NATIVE_LIB": str(tmp_path / "none.so")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    calls, backend, listing = json.loads(proc.stdout)
+    assert calls == [] and listing == before
+    if not before:  # an empty build dir: the Python twins run
+        assert backend == "python"
 
 
 def test_a_scan_with_the_anomaly_check_on_auto_loads_no_torch(tmp_path):
