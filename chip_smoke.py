@@ -81,23 +81,35 @@ Phases, each printing its own lines:
              wrapper time out of the window; beside it the kernel's time
              from torch.profiler, one launch alone after an L2 flush, and
              the wrapper's host time per call;
-10. daemon - (after the host phase) the daemon's core on NVML, in a child
-             process that imports no torch: one state DB, one write-behind
-             writer shared by every store, the 22 checks registered and the
-             supported ones scheduled every 2 s with the watchdog on, the
-             metrics syncer and recorder, the remediation engine with its
-             default empty enforce list and executors that refuse; an Xid 79
-             line through kmsg to an Unhealthy check, one ledger transition
-             and one dry-run reboot_system audit row, each step's ms after the
-             write; set-healthy (2 transitions); NVML gauges in the metrics
-             table; RSS and CPU seconds per second over 20 s; per-check host
-             ms, dispatch lag, writer commits; shutdown (flush, WAL
-             checkpoint, close). Then, here: integrity_check, a restart that
-             adds no transition, the CLI's history and remediation, fleet_scan
-             on the card over the NVLink history the daemon wrote (one launch),
-             and the native library (native.build()) against its Python twins,
-             with µs per line and ms per scan of both; printed as the
-             ``{"daemon": ...}`` line.
+10. daemon - (after the host phase) the daemon on NVML, in a child process
+             that imports no torch, twice: with the predict, fabric and
+             outbox planes off (the memory baseline), then on, their jobs
+             every 2 s. Each run: one state DB, one write-behind writer shared
+             by every store, the 22 checks registered and the supported ones
+             scheduled every 2 s with the watchdog on, the metrics syncer and
+             recorder, the remediation engine with its default empty enforce
+             list and executors that refuse; an Xid 79 line through kmsg to an
+             Unhealthy check, one ledger transition and one dry-run
+             reboot_system audit row, each step's ms after the write;
+             set-healthy (2 transitions); NVML gauges in the metrics table;
+             RSS and CPU seconds per second over 20 s; per-check host ms,
+             dispatch lag, writer commits; shutdown (flush, WAL checkpoint,
+             close). With the planes on: every check scored in [0, 1] by the
+             predict ticks, each predicted row a dry run; the fabric sweep
+             over the card's NVLink ports from NVML, all up, nothing
+             published, sweeps x ports rows; the outbox journal, reopened,
+             one record per producer record by kind with seqs 1..N, replayed
+             into a capture session through the wire codec and decoded back
+             to it, then acked; host ms per predict tick, sweep and replay
+             batch, publish-to-commit ms. VmRSS: the off run under its
+             ceiling, the on run within PLANES_VMRSS_MB of it; the pages each
+             dirtied within the budget. Then, here: integrity_check, a restart
+             that adds no transition and keeps the outbox's watermarks, the
+             CLI's history and remediation, fleet_scan on the card over the
+             NVLink history the daemon wrote (one launch), and the native
+             library (native.build()) against its Python twins, with µs per
+             line and ms per scan of both; printed as the ``{"daemon": ...}``
+             line.
 
 The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}`` and
 ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
@@ -193,6 +205,7 @@ from gpud_tpu_torch.ops.packed_scan import (  # noqa: E402
 )
 from gpud_tpu_torch.ops.window_scan import classify_links  # noqa: E402
 from gpud_tpu_torch.scan import scan as host_scan  # noqa: E402
+from gpud_tpu_torch.session.outbox import SessionOutbox  # noqa: E402
 from gpud_tpu_torch.sqlite import DB  # noqa: E402
 
 
@@ -1589,6 +1602,9 @@ def phase_host(workdir: Path, smi_line: str, c1: dict) -> dict:
 # does not meet the 150 MB on that machine (ROADMAP C3).
 DAEMON_RSS_BUDGET_MB = 150.0
 DAEMON_VMRSS_CEILING_MB = 230.0
+# the predict engine, the fabric sweep and the outbox may add this much VmRSS
+# over the same child with them off, in the same run
+PLANES_VMRSS_MB = 10.0
 PROBE_FILE_MB = 16
 NATIVE_T = T_DAY  # one host's day (144 links) for the ragged scan's timing
 ERR_KMSG = GPUErrorKmsgComponent.NAME
@@ -1626,11 +1642,14 @@ def mapped_file_probe(workdir: str, size_mb: int = PROBE_FILE_MB) -> dict:
             "one_byte_read_mb": (r2 - r0) / 1024.0}
 
 
-def daemon_child(workdir: str) -> dict:
+def daemon_child(workdir: str, planes: str = "on") -> dict:
     """The daemon's core as ``Server`` composes it, without the server, on
     NVML: run in a child process that imports no torch (``phase_daemon``
     passes this function's source to ``python -c``, so it imports what it
-    uses itself). Prints its lines and returns its record."""
+    uses itself). With ``planes`` "on" the predict engine, the fabric sweep
+    and the outbox run at the phase's 2 s and are gated; "off" is the core
+    alone, for the memory baseline. Prints its lines and
+    returns its record."""
     import json as _json
     import os
     import resource
@@ -1643,17 +1662,24 @@ def daemon_child(workdir: str) -> dict:
     from gpud_tpu_torch.components.base import _h_check_duration
     from gpud_tpu_torch.config import default_config
     from gpud_tpu_torch.daemon import Daemon
+    from gpud_tpu_torch.fabric import plane as fabric_plane
     from gpud_tpu_torch.fault_injector import Injector, Request
+    from gpud_tpu_torch.predict import engine as predict_engine
     from gpud_tpu_torch.process import RunResult
     from gpud_tpu_torch.scheduler import core as sched_core
+    from gpud_tpu_torch.session import wire
+    from gpud_tpu_torch.session.outbox import SessionOutbox
+    from gpud_tpu_torch.sqlite import DB as _DB
     from gpud_tpu_torch.storage import checkpoint_wal
 
     err_kmsg = "accelerator-gpu-error-kmsg"
     poll_s = 2       # every check, the remediation scan and the metrics syncer
     steady_s = 20.0  # the window of steady-state RSS and CPU
+    on = planes == "on"
+    predicted = "predicted_warning"
 
     def say(msg):
-        print(f"[daemon] {msg}", flush=True)
+        print(f"[daemon {planes}] {msg}", flush=True)
 
     def memory_mb():
         """VmRSS, and from /proc/self/smaps the pages this process dirtied
@@ -1695,10 +1721,97 @@ def daemon_child(workdir: str) -> dict:
         xs = sorted(xs)
         return xs[min(len(xs) - 1, int(q * (len(xs) - 1) + 0.5))] if xs else 0.0
 
+    class CaptureSession:
+        """A connected session with no socket: ``send`` keeps the frame."""
+
+        connected, auth_failed = True, False
+
+        def __init__(self):
+            self.frames = []
+
+        def send(self, frame):
+            self.frames.append(frame)
+            return True
+
+    def planes_after_stop(d, w, produced, warns, events_unjournaled):
+        """The state DB reopened once the daemon stopped: the journal holds
+        one record per producer record, by kind, seqs 1..N; the predict
+        lane's rows are dry runs; a replay into a capture session, through
+        the wire codec, decodes back to the journal; then the ack. The
+        fabric table holds sweeps x links rows."""
+        db = _DB(str(w / "tpud.state"))
+        try:
+            ob = SessionOutbox(db)
+            journal = ob.pending(after=0)
+            n = len(journal)
+            kinds = {}
+            for row in journal:
+                kinds[row[2]] = kinds.get(row[2], 0) + 1
+
+            def count(table, where=""):
+                return db.query_one(f"SELECT COUNT(*) FROM {table} {where}")[0]
+
+            expected = {"transition": count("tpud_health_transitions_v0_1"),
+                        "event": count("tpud_events_v0_1") - events_unjournaled,
+                        "remediation_audit": count("tpud_remediation_audit_v0_1"),
+                        "predict_score": produced["predict_score"],
+                        "ici_link": d.fabric.status()["published"]}
+            if [r[0] for r in journal] != list(range(1, n + 1)) or ob.last_seq != n or \
+                    set(kinds) - set(expected) or \
+                    any(kinds.get(k, 0) != v for k, v in expected.items()) or \
+                    any(kinds.get(k, 0) != v for k, v in produced.items()):
+                raise AssertionError(f"outbox journal {kinds} over seqs 1..{ob.last_seq} "
+                                     f"({n} rows); expected {expected}, produced {produced}")
+            rows = db.query("SELECT component, decision, outcome FROM tpud_remediation_audit_v0_1 "
+                            "WHERE action = 'predicted_warning' ORDER BY component")
+            if [r[0] for r in rows] != sorted(warns) or \
+                    any((r[1], r[2]) != ("dry_run", "dry_run") for r in rows):
+                raise AssertionError(f"predicted rows {rows} for warnings {warns}")
+            session, batch_ms = CaptureSession(), []
+            while True:
+                t0 = _time.perf_counter()
+                if not ob.replay_once(session):
+                    break
+                batch_ms.append((_time.perf_counter() - t0) * 1e3)
+            decoder, decoded = wire.DeltaDecoder(), []
+            for frame in session.frames:
+                batch = wire.parse_batch(wire.decode_payload(wire.encode_payload(frame.data)))
+                decoded += [list(decoder.decode_record(r)) for r in batch["records"]]
+            if decoded != [list(r) for r in journal]:
+                raise AssertionError("the replayed records differ from the journal")
+            ob.ack(n)
+            if ob.backlog() or ob.acked_seq != n:
+                raise AssertionError(f"after ack({n}): {ob.stats()}")
+            fs = d.fabric.status()
+            fabric_rows = count("tpud_fabric_matrix_v0_1")
+            if fabric_rows != fs["sweeps"] * fs["links"] or fs["sweeps"] < 1:
+                raise AssertionError(f"{fabric_rows} fabric rows for {fs['sweeps']} sweeps of "
+                                     f"{fs['links']} links")
+        finally:
+            db.close()
+        codec = "json" if wire._msgpack is None else "msgpack"
+        say(f"outbox: {n} records {kinds}, seqs 1..{n}, one per producer record; "
+            f"{len(rows)} predicted rows, all dry_run; replayed in {len(batch_ms)} batch(es) "
+            f"through the {codec} codec, {[round(x, 3) for x in batch_ms]} host ms per batch, "
+            f"decoded equal to the journal; acked {n}, backlog 0")
+        say(f"fabric: {fabric_rows} rows = {fs['sweeps']} sweeps x {fs['links']} links")
+        return {"outbox": {"records": n, "kinds": kinds, "predicted_rows": len(rows),
+                           "replay_batches": len(batch_ms), "replay_batch_host_ms": batch_ms,
+                           "acked_seq": n, "codec": codec},
+                "fabric_rows": fabric_rows, "fabric_sweeps": fs["sweeps"]}
+
     w = _Path(workdir)
-    rec = {"vmrss_mb_at": {"imports": memory_mb()["vmrss_mb"]}}
-    cfg = default_config(data_dir=str(w), kmsg_path=str(w / "kmsg"), poll_interval_seconds=poll_s,
-                         remediation_interval_seconds=poll_s, scrape_interval_seconds=poll_s)
+    rec = {"planes": planes, "vmrss_mb_at": {"imports": memory_mb()["vmrss_mb"]}}
+    # the cuts: 2 s cadences for the checks, the scan, the syncer and, with
+    # the planes on, the predict, calibrate, sweep and replay jobs
+    cuts = dict(poll_interval_seconds=poll_s, remediation_interval_seconds=poll_s,
+                scrape_interval_seconds=poll_s)
+    if on:
+        cuts.update(predict_interval_seconds=poll_s, predict_calibrate_interval_seconds=poll_s,
+                    fabric_sweep_interval_seconds=poll_s, outbox_replay_interval_seconds=poll_s)
+    else:
+        cuts.update(predict_enabled=False, fabric_sweep_enabled=False, outbox_enabled=False)
+    cfg = default_config(data_dir=str(w), kmsg_path=str(w / "kmsg"), **cuts)
     if cfg.validate() is not None:
         raise AssertionError(f"default config: {cfg.validate()}")
     bad = default_config(data_dir=str(w), scheduler_workers=0).validate()
@@ -1709,6 +1822,13 @@ def daemon_child(workdir: str) -> dict:
     t_build = _time.perf_counter()
     d = Daemon(cfg)
     rec["vmrss_mb_at"]["construct"] = memory_mb()["vmrss_mb"]  # NVML's init included
+    if on != all(p is not None for p in (d.predictor, d.fabric, d.outbox)):
+        raise AssertionError(f"planes {planes}: {d.predictor}, {d.fabric}, {d.outbox}")
+    # events journaled before the outbox was wired (the boot record) are in
+    # the table only
+    d.storage_writer.flush()
+    events_unjournaled = d.db_rw.query_one("SELECT COUNT(*) FROM tpud_events_v0_1")[0] - (
+        d.outbox.last_seq if on else 0)
     # the machine is never rebooted and no unit restarted: recorders that refuse
     calls = []
 
@@ -1725,6 +1845,21 @@ def daemon_child(workdir: str) -> dict:
     marks = {}
     transitions, audits = [], []
     tx_seen, audit_seen = threading.Event(), threading.Event()
+    # what each producer handed the outbox, counted by the observers, which
+    # call the outbox's hook (wired by the daemon) first
+    produced = {"event": 0, "transition": 0, "remediation_audit": 0, "predict_score": 0,
+                "ici_link": 0}
+    warns = {}
+    published_at = {}  # seq -> perf_counter at publish
+
+    def chain(kind, prev, then=None):
+        def hook(*a):
+            if prev is not None:
+                prev(*a)
+            produced[kind] += 1
+            if then is not None:
+                then(*a)
+        return hook
 
     def on_tx(comp, frm, to, ts, reason):
         transitions.append((comp, frm, to, reason, _time.perf_counter()))
@@ -1733,11 +1868,42 @@ def daemon_child(workdir: str) -> dict:
 
     def on_audit(row):
         audits.append((row, _time.perf_counter()))
-        if row["component"] == err_kmsg:
+        if row["component"] == err_kmsg and row["action"] != predicted:
             audit_seen.set()
 
-    d.health_ledger.on_transition = on_tx
-    d.remediation.audit.on_record = on_audit
+    def on_predict(body):
+        if body["event"] == "warn":
+            warns[body["component"]] = warns.get(body["component"], 0) + 1
+
+    d.event_store.on_insert = chain("event", d.event_store.on_insert)
+    d.health_ledger.on_transition = chain("transition", d.health_ledger.on_transition, on_tx)
+    d.remediation.audit.on_record = chain("remediation_audit", d.remediation.audit.on_record,
+                                          on_audit)
+    if on:
+        d.predictor.on_publish = chain("predict_score", d.predictor.on_publish, on_predict)
+        d.fabric.on_publish = chain("ici_link", d.fabric.on_publish)
+        publish = d.outbox.publish
+
+        def timed_publish(kind, payload, dedupe_key=""):
+            seq = publish(kind, payload, dedupe_key=dedupe_key)
+            published_at[seq] = _time.perf_counter()
+            return seq
+
+        d.outbox.publish = timed_publish
+        job_ms = {"predict-calibrate": [], "session-outbox-replay": []}
+
+        def timed(name, fn):
+            def job():
+                t0 = _time.perf_counter()
+                try:
+                    return fn()
+                finally:
+                    job_ms[name].append((_time.perf_counter() - t0) * 1e3)
+            return job
+
+        # bound before start(), where the scheduler takes them
+        d.predictor.calibrate_now = timed("predict-calibrate", d.predictor.calibrate_now)
+        d._outbox_replay_tick = timed("session-outbox-replay", d._outbox_replay_tick)
     # the reference's daemon leaves Config.poll_interval_seconds unread: each
     # check keeps its class's cadence, so the phase sets the 2 s here
     for comp in d.registry.all():
@@ -1784,6 +1950,15 @@ def daemon_child(workdir: str) -> dict:
         raise AssertionError("no transition after the Xid")
     tx_seen.clear()
     marks["ledger_transition_ms"] = (transitions[-1][-1] - t_write) * 1e3
+    if on:
+        # the Xid's records (its event, then its transition) from publish to
+        # their commit by the write-behind writer, read on the daemon's
+        # read-only connection
+        seq = max(published_at)
+        until(lambda: d.db_ro.query_one(
+            "SELECT COUNT(*) FROM tpud_session_outbox_v0_1 WHERE seq = ?", (seq,))[0] == 1,
+            "the transition's journal row", timeout=10.0)
+        marks["publish_to_commit_ms"] = (_time.perf_counter() - published_at[seq]) * 1e3
     # the ledger observes a check before the check caches its result
     until(lambda: d.registry.get(err_kmsg).last_health_states()[0].health != "Healthy",
           "the check's cached result", timeout=10.0)
@@ -1798,7 +1973,8 @@ def daemon_child(workdir: str) -> dict:
     d.storage_writer.flush()
     marks["committed_ms"] = (_time.perf_counter() - t_write) * 1e3
     mine = [t for t in d.health_ledger.history(component=err_kmsg)]
-    rows = d.remediation.audit.read(component=err_kmsg)
+    # the reactive rows; the predict lane's dry-run rows are held below
+    rows = [r for r in d.remediation.audit.read(component=err_kmsg) if r["action"] != predicted]
     if [(t["from"], t["to"]) for t in mine] != [("Healthy", "Unhealthy")] or \
             [(r["action"], r["decision"], r["outcome"]) for r in rows] != \
             [("reboot_system", "dry_run", "dry_run")]:
@@ -1806,7 +1982,9 @@ def daemon_child(workdir: str) -> dict:
     say(f"Xid 79 -> {err_kmsg} {state.health} ({state.reason}): 1 transition "
         f"{marks['ledger_transition_ms']:.3f} ms after the kmsg write, 1 reboot_system row "
         f"decided dry_run {marks['audit_row_ms']:.3f} ms after it, committed at "
-        f"{marks['committed_ms']:.3f} ms")
+        f"{marks['committed_ms']:.3f} ms" + (
+            f"; the transition's outbox record committed {marks['publish_to_commit_ms']:.3f} ms "
+            f"after its publish" if on else ""))
     # another scan inside the cooldown: still one row
     scans = d.scheduler.get_job("remediation-scan").runs
     until(lambda: d.scheduler.get_job("remediation-scan").runs >= scans + 1, "a second scan")
@@ -1815,7 +1993,7 @@ def daemon_child(workdir: str) -> dict:
         raise AssertionError("no transition after set-healthy")
     d.storage_writer.flush()
     mine = d.health_ledger.history(component=err_kmsg)
-    rows = d.remediation.audit.read(component=err_kmsg)
+    rows = [r for r in d.remediation.audit.read(component=err_kmsg) if r["action"] != predicted]
     if len(mine) != 2 or mine[0]["to"] != "Healthy" or len(rows) != 1:
         raise AssertionError(f"after set-healthy: transitions {mine}, audit {rows}")
     rec["transitions"] = [(t["from"], t["to"], t["reason"]) for t in reversed(mine)]
@@ -1824,7 +2002,7 @@ def daemon_child(workdir: str) -> dict:
     rec["other_transitions"] = [t[:4] for t in transitions if t[0] != err_kmsg]
     rec["other_audit_rows"] = [
         {k: r[k] for k in ("component", "action", "decision", "outcome")}
-        for r, _ in audits if r["component"] != err_kmsg]
+        for r, _ in audits if r["component"] != err_kmsg or r["action"] == predicted]
     say(f"set-healthy: 2 transitions {rec['transitions']}; other components: "
         f"{len(rec['other_transitions'])} transitions, {len(rec['other_audit_rows'])} audit rows "
         f"{rec['other_audit_rows']}")
@@ -1893,6 +2071,37 @@ def daemon_child(workdir: str) -> dict:
     if ws["dropped_ops"]:
         raise AssertionError(f"the writer dropped {ws['dropped_ops']} ops")
 
+    if on:
+        # predict: ticks ran, every registered check has a score in [0, 1]
+        st = d.predictor.status()
+        scores = d.predictor.scores()["components"]
+        if st["ticks"] < 1 or set(scores) != set(d.registry.names()) or not all(
+                0.0 <= v["score"] <= 1.0 for v in scores.values()):
+            raise AssertionError(f"predict: {st}, scores {scores}")
+        tick_ms = predict_engine._h_tick.get_sum() / predict_engine._h_tick.get_count() * 1e3
+        rec["predict"] = {"ticks": st["ticks"], "armed": st["armed"],
+                          "warnings": st["warnings_total"], "warns": dict(warns),
+                          "calibrated": d.predictor.calibration()["classes"],
+                          "scores": {k: v["score"] for k, v in scores.items()},
+                          "tick_host_ms": tick_ms}
+        # fabric: the card's NVLink ports from NVML, every one up, none published
+        fs = d.fabric.status()
+        ports = len(d.gpu_instance.nvlink_links())
+        states = {r["link"]: r["state"] for r in d.fabric.matrix()}
+        if fs["mesh"]["source"] != "nvml" or fs["links"] != ports or ports < 1 or \
+                set(states.values()) != {"up"} or fs["published"]:
+            raise AssertionError(f"fabric: {fs}, {ports} ports, states {states}")
+        sweep_ms = fabric_plane._h_sweep.get_sum() / fabric_plane._h_sweep.get_count() * 1e3
+        rec["fabric"] = {"mesh": fs["mesh"], "links": fs["links"], "published": fs["published"],
+                         "sweep_host_ms": sweep_ms}
+        rec["plane_job_host_ms"] = {k: [pct(v, 0.5), max(v, default=0.0), len(v)]
+                                    for k, v in job_ms.items()}
+        say(f"predict: {st['ticks']} ticks, {len(scores)} checks scored in [0, 1], armed "
+            f"{st['armed']}, warnings {dict(warns)}; {tick_ms:.3f} host ms per tick. fabric: "
+            f"{fs['mesh']} from NVML, {fs['links']} links all up, 0 published; "
+            f"{sweep_ms:.3f} host ms per sweep; [p50, max, runs] host ms of the calibrate and "
+            f"replay jobs {rec['plane_job_host_ms']}")
+
     err = d.registry.get(err_kmsg)
     rec["native"] = {"available": _native.available(), "backend": _native.backend(),
                      "path": _native.loaded_path(),
@@ -1904,10 +2113,120 @@ def daemon_child(workdir: str) -> dict:
     d.storage_writer.flush()
     rec["checkpoint"] = checkpoint_wal(d.db_rw, d.storage_writer)
     d.stop()
+    if on:
+        rec.update(planes_after_stop(d, w, produced, warns, events_unjournaled))
     rec["refused_executor_calls"] = calls
     rec["torch_loaded"] = sorted(m for m in _sys.modules if m.split(".")[0] == "torch")
     rec["kmsg_latency_ms"] = marks
     return rec
+
+
+def child_code(*fns, call: str) -> str:
+    """A ``python -c`` program of these functions' sources that prints
+    ``call``'s result as its last line, after ``no_public_network``."""
+    return "\n".join([
+        "import json, sys",
+        "from gpud_tpu_torch import netutil",
+        "from gpud_tpu_torch.providers import detect as provider_detect",
+        inspect.getsource(no_public_network),
+        "no_public_network()",
+        f"PROBE_FILE_MB = {PROBE_FILE_MB}",
+        *(inspect.getsource(fn) for fn in fns),
+        f"print(json.dumps({call}), flush=True)",
+    ])
+
+
+def run_daemon_child(w: Path, planes: str, lib: Path) -> dict:
+    """``daemon_child`` in a child without torch; its lines are printed
+    here and its record is gated: no torch, no executor call, the native
+    library in use, the dirtied pages within the budget."""
+    code = child_code(mapped_file_probe, daemon_child,
+                      call="{'daemon_child': daemon_child(sys.argv[1], sys.argv[2])}")
+    env = dict(os.environ, TPUD_KMSG_FILE_PATH=str(w / "kmsg"), TPUD_NATIVE_LIB=str(lib))
+    proc = subprocess.run([sys.executable, "-c", code, str(w), planes], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    out = proc.stdout.splitlines()
+    for row in out[:-1] if proc.returncode == 0 else out:
+        print(row, flush=True)
+    if proc.returncode != 0 or not out:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise AssertionError(f"the daemon child (planes {planes}) exited {proc.returncode}")
+    child = json.loads(out[-1])["daemon_child"]
+    if child["torch_loaded"]:
+        raise AssertionError(f"the daemon child loaded {child['torch_loaded']}")
+    if child["refused_executor_calls"]:
+        raise AssertionError(f"executors called: {child['refused_executor_calls']}")
+    if child["steady"]["dirty_mb"] > DAEMON_RSS_BUDGET_MB:
+        raise AssertionError(f"daemon memory {child['steady']} over the {DAEMON_RSS_BUDGET_MB} MB "
+                             f"budget")
+    if not (child["native"]["available"] and child["native"]["path"] == str(lib)
+            and child["native"]["deduper"] == "native"
+            and child["native"]["nvlink_store"] == "native"):
+        raise AssertionError(f"the daemon child ran without the native library: {child['native']}")
+    return child
+
+
+def construct_child(workdir: str, planes: str) -> dict:
+    """VmRSS and dirtied pages after the daemon's imports and after
+    ``Daemon()``, with the predict, fabric and outbox planes on or off; run
+    in a child without torch."""
+    from pathlib import Path as _Path
+
+    def mb():
+        status = dict(row.split(":", 1) for row in
+                      _Path("/proc/self/status").read_text().splitlines() if ":" in row)
+        dirty = sum(int(row.split()[1]) for row in _Path("/proc/self/smaps").read_text().splitlines()
+                    if row.startswith(("Private_Dirty:", "Shared_Dirty:")))
+        return [int(status["VmRSS"].split()[0]) / 1024.0, dirty / 1024.0]
+
+    import importlib
+
+    out = {"interpreter": mb()}
+    # the core's modules, then the planes' (msgpack among them where it is
+    # installed), then the daemon module itself
+    for mod in ("gpud_tpu_torch.config", "gpud_tpu_torch.components.all",
+                "gpud_tpu_torch.health_history", "gpud_tpu_torch.remediation.engine",
+                "gpud_tpu_torch.scheduler", "gpud_tpu_torch.storage", "gpud_tpu_torch.metrics.store",
+                "gpud_tpu_torch.kmsg.syncer", "gpud_tpu_torch.gpu.instance"):
+        importlib.import_module(mod)
+    out["core_imports"] = mb()
+    for mod in ("gpud_tpu_torch.predict", "gpud_tpu_torch.fabric", "gpud_tpu_torch.session.outbox"):
+        importlib.import_module(mod)
+    out["plane_imports"] = mb()
+    from gpud_tpu_torch.config import default_config
+    from gpud_tpu_torch.daemon import Daemon
+
+    out["imports"] = mb()
+    off = {} if planes == "on" else dict(predict_enabled=False, fabric_sweep_enabled=False,
+                                         outbox_enabled=False)
+    d = Daemon(default_config(data_dir=workdir, kmsg_path=workdir + "/kmsg", **off))
+    out["construct"] = mb()
+    d.stop()
+    return out
+
+
+def plane_cost(workdir: Path) -> dict:
+    """[VmRSS, dirtied] MB after the imports and after ``Daemon()`` in a
+    child without torch, with the planes off and on, and the difference.
+    Runs on any host; on one without NVML set TPUD_GPU_MOCK_ALL_SUCCESS=1."""
+    got = {}
+    for planes in ("off", "on"):
+        w = workdir / f"construct_{planes}"
+        w.mkdir()
+        (w / "kmsg").touch()
+        proc = subprocess.run([sys.executable, "-c", child_code(
+            construct_child, call="construct_child(sys.argv[1], sys.argv[2])"), str(w), planes],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            raise AssertionError(f"the construction child (planes {planes}) exited "
+                                 f"{proc.returncode}")
+        got[planes] = json.loads(proc.stdout.splitlines()[-1])
+    got["construct_on_minus_off"] = [round(a - b, 3) for a, b in
+                                     zip(got["on"]["construct"], got["off"]["construct"])]
+    got["plane_imports_minus_core"] = [round(a - b, 3) for a, b in
+                                       zip(got["on"]["plane_imports"], got["on"]["core_imports"])]
+    return got
 
 
 def native_parity(store_db: Path, workdir: Path, smi_line: str) -> dict:
@@ -2045,11 +2364,13 @@ def field_values_guard(spare_entries=(nvml_mod.FIELD_VALUES_SPARE,)) -> dict:
 
 
 def phase_daemon(workdir: Path, smi_line: str) -> dict:
-    """The daemon's core on the card's machine: the native library built,
-    the daemon run in a child without torch (``daemon_child``), then the
-    state DB it left read again here: integrity, a restart that adds no
-    transition, the CLI, ``fleet_scan`` on the card over the NVLink history
-    the daemon wrote, and the native library against its Python twins."""
+    """The daemon on the card's machine: the native library built, the
+    planes' construction cost (``plane_cost``), the daemon run in a child
+    without torch (``daemon_child``) with the planes off and then on, then
+    the second run's state DB read again here: integrity, a restart that
+    adds no transition and keeps the outbox's watermarks, the CLI,
+    ``fleet_scan`` on the card over the NVLink history the daemon wrote,
+    and the native library against its Python twins."""
     t_phase = time.perf_counter()
     for env in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
         os.environ.pop(env, None)
@@ -2067,45 +2388,33 @@ def phase_daemon(workdir: Path, smi_line: str) -> dict:
     if not loaded:
         raise AssertionError(f"the native library built at {lib} does not load")
     line("daemon", f"native.build(): {lib} in {build_s:.3f} s")
+    costs = plane_cost(workdir)
+    # the core alone first (the memory baseline), then with the planes on;
+    # the second run's state DB is the one read below
+    children, child_s = {}, {}
+    for planes in ("off", "on"):
+        w = workdir / ("daemon" if planes == "on" else "daemon_planes_off")
+        w.mkdir()
+        (w / "kmsg").touch()
+        t0 = time.perf_counter()
+        children[planes] = run_daemon_child(w, planes, lib)
+        child_s[planes] = time.perf_counter() - t0
+    child, off = children["on"], children["off"]
+    off_peak = off["steady"]["vmrss_peak_sampled_mb"]
+    on_peak = child["steady"]["vmrss_peak_sampled_mb"]
+    if off_peak > DAEMON_VMRSS_CEILING_MB:
+        raise AssertionError(f"daemon VmRSS with the planes off {off['steady']} over its "
+                             f"{DAEMON_VMRSS_CEILING_MB} MB ceiling")
+    if on_peak > off_peak + PLANES_VMRSS_MB:
+        raise AssertionError(f"daemon VmRSS with the planes on {on_peak:.1f} MB, more than "
+                             f"{PLANES_VMRSS_MB} MB over the planes off ({off_peak:.1f} MB)")
+    line("daemon", f"VmRSS sampled peak: planes off {off_peak:.1f} MB (ceiling "
+                   f"{DAEMON_VMRSS_CEILING_MB}), on {on_peak:.1f} MB (+{on_peak - off_peak:.1f}, "
+                   f"ceiling +{PLANES_VMRSS_MB}); dirtied {off['steady']['dirty_mb']:.1f} / "
+                   f"{child['steady']['dirty_mb']:.1f} MB (budget {DAEMON_RSS_BUDGET_MB}); "
+                   f"CPU s per s {off['steady']['cpu_s_per_s']:.5f} / "
+                   f"{child['steady']['cpu_s_per_s']:.5f}; construction alone {costs}")
     w = workdir / "daemon"
-    w.mkdir()
-    (w / "kmsg").touch()
-    code = "\n".join([
-        "import json, sys",
-        "from gpud_tpu_torch import netutil",
-        "from gpud_tpu_torch.providers import detect as provider_detect",
-        inspect.getsource(no_public_network),
-        "no_public_network()",
-        f"PROBE_FILE_MB = {PROBE_FILE_MB}",
-        inspect.getsource(mapped_file_probe),
-        inspect.getsource(daemon_child),
-        "print(json.dumps({'daemon_child': daemon_child(sys.argv[1])}), flush=True)",
-    ])
-    env = dict(os.environ, TPUD_KMSG_FILE_PATH=str(w / "kmsg"), TPUD_NATIVE_LIB=str(lib))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, str(w)], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-    child_s = time.perf_counter() - t0
-    out = proc.stdout.splitlines()
-    for row in out[:-1] if proc.returncode == 0 else out:
-        print(row, flush=True)
-    if proc.returncode != 0 or not out:
-        sys.stderr.write(proc.stderr[-8000:])
-        raise AssertionError(f"the daemon child exited {proc.returncode}")
-    child = json.loads(out[-1])["daemon_child"]
-    if child["torch_loaded"]:
-        raise AssertionError(f"the daemon child loaded {child['torch_loaded']}")
-    if child["refused_executor_calls"]:
-        raise AssertionError(f"executors called: {child['refused_executor_calls']}")
-    if child["steady"]["dirty_mb"] > DAEMON_RSS_BUDGET_MB:
-        raise AssertionError(f"daemon memory {child['steady']} over the {DAEMON_RSS_BUDGET_MB} MB budget")
-    if child["steady"]["vmrss_peak_sampled_mb"] > DAEMON_VMRSS_CEILING_MB:
-        raise AssertionError(f"daemon VmRSS {child['steady']} over its {DAEMON_VMRSS_CEILING_MB} MB "
-                             f"ceiling")
-    if not (child["native"]["available"] and child["native"]["path"] == str(lib)
-            and child["native"]["deduper"] == "native"
-            and child["native"]["nvlink_store"] == "native"):
-        raise AssertionError(f"the daemon child ran without the native library: {child['native']}")
 
     state = w / "tpud.state"
     conn = sqlite3.connect(state)
@@ -2125,19 +2434,29 @@ def phase_daemon(workdir: Path, smi_line: str) -> dict:
         reboot_event_store=host_mod.RebootEventStore(es), health_ledger=ledger))
     cr = comp.check()
     after = len(ledger.history())
+    outbox = SessionOutbox(db)
+    watermarks = (outbox.last_seq, outbox.acked_seq)
     db.close()
     if after != before or cr.health_state_type() != HealthStateType.HEALTHY:
         raise AssertionError(f"restart: {before} -> {after} transitions, {cr.health_state_type()}")
+    n = child["outbox"]["records"]
+    if watermarks != (n, n):
+        raise AssertionError(f"restart: the outbox's (last_seq, acked_seq) {watermarks}, not {n}")
+    fabric_rows = child["fabric_rows"]
     cli = {}
     for sub in ("history", "remediation"):
         r = subprocess.run([sys.executable, "-m", "gpud_tpu_torch", sub, "--json",
                             "--component", ERR_KMSG, "--data-dir", str(w)],
                            cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
         cli[sub] = json.loads(r.stdout)
+    attempts = [(a["action"], a["decision"], a["outcome"]) for a in cli["remediation"]["attempts"]]
+    reactive = [a for a in attempts if a[0] != "predicted_warning"]
+    predicted = [a for a in attempts if a[0] == "predicted_warning"]
     if [(t["from"], t["to"]) for t in cli["history"]["transitions"]] != [
             ("Unhealthy", "Healthy"), ("Healthy", "Unhealthy")] or \
-            [(a["action"], a["decision"]) for a in cli["remediation"]["attempts"]] != [
-            ("reboot_system", "dry_run")]:
+            reactive != [("reboot_system", "dry_run", "dry_run")] or \
+            len(predicted) != child["predict"]["warns"].get(ERR_KMSG, 0) or \
+            any(a[1:] != ("dry_run", "dry_run") for a in predicted):
         raise AssertionError(f"CLI on the daemon's state DB: {cli}")
 
     # fleet_scan on the card over the NVLink history this daemon wrote
@@ -2149,7 +2468,8 @@ def phase_daemon(workdir: Path, smi_line: str) -> dict:
     sdb.close()
     res, launches, names = fleet_scan_of_store(state, ref, 3600.0, now)
     line("daemon", f"restart: a fresh HealthLedger and one check, {before} -> {after} "
-                   f"transitions; integrity_check {integrity}; CLI history and remediation "
+                   f"transitions; the outbox's last_seq and acked_seq {watermarks}; "
+                   f"{fabric_rows} fabric rows; integrity_check {integrity}; CLI history and remediation "
                    f"--json show 2 transitions and the dry-run row; fleet_scan over the daemon's "
                    f"{len(names)} links of {max(s.samples for s in ref.links.values())} samples: "
                    f"{launches} launch, {res['summary']}, equal to NVLinkStore.scan and "
@@ -2158,6 +2478,10 @@ def phase_daemon(workdir: Path, smi_line: str) -> dict:
     guard = field_values_guard()
 
     rec = {"card": smi_line, **child, "native_build_s": build_s, "child_wall_s": child_s,
+           "planes_off": {k: off[k] for k in ("steady", "vmrss_mb_at", "scheduler", "writer",
+                                                "kmsg_latency_ms", "jobs")},
+           "planes_vmrss_increment_mb": on_peak - off_peak, "construction_vmrss_mb": costs,
+           "outbox_after_restart": watermarks,
            "integrity_check": integrity, "restart_new_transitions": after - before,
            "cli_history_transitions": len(cli["history"]["transitions"]),
            "cli_remediation_rows": len(cli["remediation"]["attempts"]),

@@ -1,18 +1,23 @@
 """The daemon's core, composed without its server.
 
-The port of the persistence, scheduling and check wiring of
-``gpud_tpu/server/server.py``: what ``Server.__init__`` builds (:58-130,
-:183-199, :280-340), what ``Server.start`` registers before the scheduler
-starts (:557-655) and the order in which ``Server.stop`` closes it
-(:718-770). One state DB, one ``BatchWriter`` shared by the event store,
-the health ledger, the metrics store and the remediation audit, the checks
-as scheduler jobs, the shared kmsg watcher, the metrics syncer and the
-self-metrics recorder, the remediation engine, and the consolidated
-retention and WAL-checkpoint jobs.
+The port of the persistence, scheduling, check and plane wiring of
+``gpud_tpu/server/server.py``: what ``Server.__init__`` builds (:58-333),
+how it wires the outbox's producers (:429-538), what ``Server.start``
+registers before the scheduler starts (:557-655) and the order in which
+``Server.stop`` closes it (:718-770). One state DB, one ``BatchWriter``
+shared by the event store, the health ledger, the metrics store, the
+remediation audit, the fabric matrix and the outbox journal; the checks as
+scheduler jobs, the shared kmsg watcher, the metrics syncer and the
+self-metrics recorder, the remediation engine, the predict engine, the
+fabric sweep over the GPUs' NVLink ports, the wire codec, the circuit
+breaker and the durable outbox, and the consolidated retention and
+WAL-checkpoint jobs.
 
-The reference's server also builds an HTTP listener, the session and its
-outbox, and the predict, fabric, chaos, package and update planes; those are
-not ported yet, and the port's server will wrap this class. Nothing here
+The reference's server also builds an HTTP listener, the session transport
+that the outbox replays into, and the chaos, package and update planes;
+those are not ported yet, and the port's server will wrap this class.
+Until the session is, ``self.session`` stays ``None`` and the replay tick
+hands nothing over, as the reference's does with no session. Nothing here
 imports torch: the anomaly check scores with numpy unless the process
 already holds a CUDA context.
 """
@@ -32,6 +37,7 @@ from gpud_tpu_torch.components.memory import match_oom
 from gpud_tpu_torch.components.os_comp import match_kernel_panic
 from gpud_tpu_torch.config import Config, default_config
 from gpud_tpu_torch.eventstore import EventStore
+from gpud_tpu_torch.fabric import FabricPlane
 from gpud_tpu_torch.gpu.instance import new_instance
 from gpud_tpu_torch.health_history import HealthLedger
 from gpud_tpu_torch.kmsg.syncer import SharedWatcher, Syncer
@@ -41,11 +47,15 @@ from gpud_tpu_torch.metadata import Metadata
 from gpud_tpu_torch.metrics.registry import DEFAULT_REGISTRY
 from gpud_tpu_torch.metrics.store import MetricsStore, SelfMetricsRecorder
 from gpud_tpu_torch.metrics.store import Syncer as MetricsSyncer
+from gpud_tpu_torch.predict import PredictEngine
 from gpud_tpu_torch.remediation.engine import RemediationEngine
 from gpud_tpu_torch.remediation.policy import Policy as RemediationPolicy
 from gpud_tpu_torch.scheduler import Scheduler
+from gpud_tpu_torch.session import wire as session_wire
+from gpud_tpu_torch.session.outbox import CircuitBreaker, SessionOutbox
 from gpud_tpu_torch.sqlite import open_rw_ro
 from gpud_tpu_torch.storage import BatchWriter, checkpoint_wal
+from gpud_tpu_torch.tracing import current_correlation_id
 
 logger = get_logger(__name__)
 
@@ -124,6 +134,32 @@ class Daemon:
                 writer=self.storage_writer,
             )
 
+        # predictive health: advisory only — warnings annotate states,
+        # write dry-run audit rows and publish to the outbox; nothing runs
+        self.predictor: Optional[PredictEngine] = None
+        if cfg.predict_enabled:
+            self.predictor = PredictEngine(
+                registry=None,  # attached below once the registry exists
+                ledger=self.health_ledger,
+                event_store=self.event_store,
+                remediation=self.remediation,
+                interval_seconds=float(cfg.predict_interval_seconds),
+                threshold=float(cfg.predict_threshold),
+                hysteresis=float(cfg.predict_hysteresis),
+                arm_ticks=cfg.predict_arm_ticks,
+                clear_ticks=cfg.predict_clear_ticks,
+                window_seconds=float(cfg.predict_window_seconds),
+                history_limit=cfg.predict_history_limit,
+                warn_cooldown_seconds=float(cfg.predict_warn_cooldown_seconds),
+                publish_interval_seconds=float(cfg.predict_publish_interval_seconds),
+                calibrate_enabled=bool(cfg.predict_calibrate_enabled),
+                calibrate_interval_seconds=float(cfg.predict_calibrate_interval_seconds),
+                calibrate_min_history=cfg.predict_calibrate_min_history,
+                calibrate_min_threshold=float(cfg.predict_calibrate_min_threshold),
+                calibrate_margin=float(cfg.predict_calibrate_margin),
+                calibrate_horizon_seconds=float(cfg.predict_calibrate_horizon_seconds),
+            )
+
         self.metrics_registry = metrics_registry or DEFAULT_REGISTRY
         self.metrics_store = MetricsStore(
             self.db_rw,
@@ -142,6 +178,44 @@ class Daemon:
             failure_injector=failure_injector,
             accelerator_type=cfg.accelerator_type_override,
         )
+
+        # the fabric sweep over the GPUs' NVLink ports; built before the
+        # outbox so the ici_link producer below can hook it
+        self.fabric: Optional[FabricPlane] = None
+        if cfg.fabric_sweep_enabled:
+            self.fabric = FabricPlane(
+                self.db_rw,
+                gpu=self.gpu_instance,
+                writer=self.storage_writer,
+                interval_seconds=float(cfg.fabric_sweep_interval_seconds),
+                latency_threshold_z=float(cfg.fabric_sweep_latency_threshold_z),
+                ewma_alpha=float(cfg.fabric_sweep_ewma_alpha),
+                warmup_sweeps=int(cfg.fabric_sweep_warmup_sweeps),
+                retention_seconds=float(cfg.fabric_sweep_retention_seconds),
+            )
+
+        # the durable outbox and the control-plane circuit breaker:
+        # producers journal here; a replay job drains everything above the
+        # manager-acked watermark into the session as batched frames
+        self.session = None  # the transport, not ported yet
+        self.outbox: Optional[SessionOutbox] = None
+        session_wire.configure(compress_min_bytes=cfg.session_wire_compress_min_bytes)
+        self.session_circuit = CircuitBreaker(
+            failure_threshold=cfg.session_circuit_failure_threshold,
+            open_seconds=float(cfg.session_circuit_open_seconds),
+        )
+        if cfg.outbox_enabled:
+            self.outbox = SessionOutbox(
+                self.db_rw,
+                writer=self.storage_writer,
+                max_rows=cfg.outbox_max_rows,
+                max_age_seconds=float(cfg.outbox_max_age_seconds),
+                replay_batch=cfg.outbox_replay_batch,
+                keyframe_interval=cfg.session_wire_keyframe_interval,
+                redeliver_after_seconds=float(cfg.outbox_redeliver_seconds),
+            )
+            self._wire_outbox_producers()
+
         self.scheduler = Scheduler(
             workers=cfg.scheduler_workers,
             hang_timeout=float(cfg.scheduler_watchdog_seconds),
@@ -178,6 +252,11 @@ class Daemon:
             # fully-populated registry
             self.remediation.registry = self.registry
             self.remediation.executors.registry = self.registry
+        if self.predictor is not None:
+            self.predictor.registry = self.registry
+            # fabric deviations corroborate the NVLink component's score
+            if self.fabric is not None:
+                self.predictor.fabric = self.fabric
 
         # one kmsg reader feeding every kmsg-consuming component
         self.kmsg_watcher = SharedWatcher(path=self.kmsg_path, from_now=True)
@@ -202,6 +281,71 @@ class Daemon:
         if err_comp is not None and err_comp.syncer is not None:
             self.kmsg_watcher.register(err_comp.syncer)
 
+    # -- the outbox's producers ------------------------------------------------
+    def _wire_outbox_producers(self) -> None:
+        """Journal every producer the manager reads: events, health
+        transitions, remediation audit rows, predict scores and fabric
+        links, with the reference's kinds and dedupe keys (each record's
+        natural identity, so the manager collapses redeliveries). Event
+        and transition hooks fire on the check's thread, so its
+        correlation id rides the record."""
+        outbox = self.outbox
+
+        def on_event(component: str, ev) -> None:
+            body = {
+                "component": component,
+                "time": ev.time,
+                "name": ev.name,
+                "type": ev.type,
+                "message": ev.message,
+            }
+            cid = current_correlation_id()
+            if cid:
+                body["correlation_id"] = cid
+            outbox.publish("event", body, dedupe_key=f"event:{component}:{ev.time}:{ev.name}")
+
+        def on_transition(component: str, from_state: str, to_state: str,
+                          ts: float, reason: str) -> None:
+            body = {"component": component, "from": from_state, "to": to_state,
+                    "ts": ts, "reason": reason}
+            cid = current_correlation_id()
+            if cid:
+                body["correlation_id"] = cid
+            outbox.publish("transition", body,
+                           dedupe_key=f"transition:{component}:{ts}:{to_state}")
+
+        def on_audit(row: dict) -> None:
+            outbox.publish(
+                "remediation_audit", row,
+                dedupe_key=f"audit:{row.get('component')}:{row.get('ts')}:{row.get('action')}",
+            )
+
+        def on_predict(body: dict) -> None:
+            outbox.publish(
+                "predict_score", body,
+                dedupe_key=f"predict:{body.get('component')}:{body.get('event')}:{body.get('ts')}",
+            )
+
+        def on_ici_link(body: dict) -> None:
+            outbox.publish("ici_link", body,
+                           dedupe_key=f"ici_link:{body.get('link')}:{body.get('ts')}")
+
+        self.event_store.on_insert = on_event
+        self.health_ledger.on_transition = on_transition
+        if self.remediation is not None:
+            self.remediation.audit.on_record = on_audit
+        if self.predictor is not None:
+            self.predictor.on_publish = on_predict
+        if self.fabric is not None:
+            self.fabric.on_publish = on_ici_link
+
+    def _outbox_replay_tick(self) -> int:
+        """Job "session-outbox-replay": one batch of unacked records into
+        the session; 0 while there is none, disconnected or caught up."""
+        if self.outbox is None:
+            return 0
+        return self.outbox.replay_once(self.session)
+
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
         """Register every periodic job, then start the scheduler: jobs known
@@ -224,6 +368,10 @@ class Daemon:
             self._retention_targets.append(
                 ("remediation-audit", self.remediation.audit.purge_once)
             )
+        if self.outbox is not None:
+            self._retention_targets.append(("session-outbox", self.outbox.purge_once))
+        if self.fabric is not None:
+            self._retention_targets.append(("fabric-matrix", self.fabric.purge_once))
         retention_interval = max(60.0, self.config.events_retention_seconds / 5.0)
         self.scheduler.add_job(
             "retention-purge",
@@ -244,8 +392,20 @@ class Daemon:
                     interval=interval,
                     initial_delay=interval,
                 )
+        if self.outbox is not None:
+            interval = float(self.config.outbox_replay_interval_seconds)
+            self.scheduler.add_job(
+                "session-outbox-replay",
+                self._outbox_replay_tick,
+                interval=interval,
+                initial_delay=interval,
+            )
         if self.remediation is not None:
             self.remediation.start(self.scheduler)
+        if self.predictor is not None:
+            self.predictor.start(self.scheduler)
+        if self.fabric is not None:
+            self.fabric.start(self.scheduler)
         self.metrics_syncer.start(self.scheduler)
         self.self_metrics.start(self.scheduler)
         self.scheduler.start()
@@ -272,6 +432,10 @@ class Daemon:
                 logger.exception("component %s close failed", comp.name())
         if self.remediation is not None:
             self.remediation.close()
+        if self.predictor is not None:
+            self.predictor.close()
+        if self.fabric is not None:
+            self.fabric.close()
         self.scheduler.close()
         self.health_ledger.close()
         self.event_store.close()

@@ -196,6 +196,11 @@ class Watcher:
     Spawns one reader thread delivering parsed ``Message``s to ``callback``.
     ``from_now=True`` seeks to the end first (daemon mode: only new lines);
     ``False`` replays the existing buffer first (scan/bootstrap mode).
+
+    ``start`` opens the source and seeks on the caller's thread, so every
+    line written once it has returned is delivered. The reference opens on
+    the reader thread: a line written before that thread has sought to the
+    end is skipped (ROADMAP C6).
     """
 
     def __init__(
@@ -217,8 +222,9 @@ class Watcher:
         if self._thread is not None:
             return
         self._stop.clear()
+        fd = self._open()
         self._thread = threading.Thread(
-            target=self._run, name="tpud-kmsg-watcher", daemon=True
+            target=self._run, args=(fd,), name="tpud-kmsg-watcher", daemon=True
         )
         self._thread.start()
 
@@ -229,20 +235,38 @@ class Watcher:
             self._thread = None
 
     # -- internals ---------------------------------------------------------
-    def _run(self) -> None:
+    def _run(self, fd: Optional[int] = None) -> None:
         while not self._stop.is_set():
             try:
-                self._follow_once()
+                self._follow_once(fd)
             except Exception:  # noqa: BLE001 — watcher must survive
                 logger.exception("kmsg follow error; retrying in 1s")
+            fd = None
             if self._stop.wait(1.0):
                 return
+        if fd is not None:  # closed before the first follow
+            os.close(fd)
 
-    def _follow_once(self) -> None:
+    def _open(self) -> Optional[int]:
+        """Open the source, at its end when ``from_now``; None on failure."""
         try:
             fd = os.open(self.path, os.O_RDONLY | os.O_NONBLOCK)
         except OSError as e:
             logger.warning("kmsg open %s failed: %s", self.path, e)
+            return None
+        if self.from_now:
+            try:
+                os.lseek(fd, 0, os.SEEK_END)
+            except OSError as e:
+                os.close(fd)
+                logger.warning("kmsg seek %s failed: %s", self.path, e)
+                return None
+        return fd
+
+    def _follow_once(self, fd: Optional[int] = None) -> None:
+        if fd is None:
+            fd = self._open()
+        if fd is None:
             self._stop.wait(5.0)
             return
         try:
@@ -255,8 +279,6 @@ class Watcher:
             os.close(fd)
 
     def _follow_device(self, fd: int) -> None:
-        if self.from_now:
-            os.lseek(fd, 0, os.SEEK_END)
         poller = select.poll()
         poller.register(fd, select.POLLIN)
         while not self._stop.is_set():
@@ -285,8 +307,6 @@ class Watcher:
         which then floors fixture-mode detection latency."""
         buf = b""
         sleep_s = min(self.poll_timeout_ms, 50) / 1000.0
-        if self.from_now:
-            os.lseek(fd, 0, os.SEEK_END)
         ino = _InotifyWatch.create(self.path)
         try:
             while not self._stop.is_set():

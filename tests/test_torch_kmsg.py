@@ -276,3 +276,54 @@ def test_writer_numbers_its_records_and_reports_errors(tmp_path):
 def test_writer_follows_the_env_setting(tmp_path, monkeypatch):
     monkeypatch.setenv("TPUD_KMSG_FILE_PATH", str(tmp_path / "env"))
     assert KmsgWriter().path == str(tmp_path / "env")
+
+
+class _GatedOs:
+    """The ``os`` a watcher module sees, whose ``open`` on the reader thread
+    waits for ``gate``: a reader thread the OS has not run yet."""
+
+    def __init__(self, gate):
+        self.gate = gate
+
+    def __getattr__(self, name):
+        import os
+        return getattr(os, name)
+
+    def open(self, *a, **k):
+        import os
+        import threading
+        if threading.current_thread().name == "tpud-kmsg-watcher":
+            assert self.gate.wait(30.0)
+        return os.open(*a, **k)
+
+
+@pytest.mark.parametrize("mod", [ref_watcher, watcher], ids=["ref", "port"])
+def test_a_line_written_once_start_returns_is_delivered(mod, tmp_path, monkeypatch):
+    # ROADMAP C6: the reference opens and seeks on the reader thread, so a
+    # line written after start() but before that thread seeks is skipped;
+    # the port opens and seeks in start(). The second line, written once
+    # the reader follows the file (it asks for its inotify watch after the
+    # seek), bounds the wait.
+    import threading
+    p = tmp_path / "kmsg"
+    p.write_text("6,1,100,-;old line\n")
+    gate, following, done = threading.Event(), threading.Event(), threading.Event()
+    got = []
+    monkeypatch.setattr(mod, "os", _GatedOs(gate))
+    create = mod._InotifyWatch.create
+    monkeypatch.setattr(mod._InotifyWatch, "create",
+                        lambda path, *a: (following.set(), create(path, *a))[1])
+    w = mod.Watcher(lambda m: (got.append(m.message), m.message == "second" and done.set()),
+                    path=str(p), from_now=True)
+    w.start()
+    try:
+        with open(p, "a") as f:
+            f.write("3,2,200,-;first\n")
+        gate.set()
+        assert following.wait(30.0)
+        with open(p, "a") as f:
+            f.write("3,3,300,-;second\n")
+        assert done.wait(30.0)
+    finally:
+        w.close()
+    assert got == (["second"] if mod is ref_watcher else ["first", "second"])

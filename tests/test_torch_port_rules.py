@@ -86,6 +86,19 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.version",
     "gpud_tpu_torch.sdnotify",
     "gpud_tpu_torch.daemon",
+    # the planes the daemon wires in
+    "gpud_tpu_torch.predict",
+    "gpud_tpu_torch.predict.features",
+    "gpud_tpu_torch.predict.calibrate",
+    "gpud_tpu_torch.predict.engine",
+    "gpud_tpu_torch.fabric",
+    "gpud_tpu_torch.fabric.store",
+    "gpud_tpu_torch.fabric.mesh",
+    "gpud_tpu_torch.fabric.plane",
+    "gpud_tpu_torch.session",
+    "gpud_tpu_torch.session.wire",
+    "gpud_tpu_torch.session.session",
+    "gpud_tpu_torch.session.outbox",
 ])
 def test_the_daemon_path_loads_neither_torch_nor_jax(module):
     # the daemon's modules keep torch (the CUDA runtime) off its import path
@@ -101,6 +114,35 @@ def test_the_daemon_path_loads_neither_torch_nor_jax(module):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+PLANE_FILES = [f"gpud_tpu_torch/{pkg}/{mod}.py" for pkg, mods in (
+    ("predict", ("__init__", "features", "calibrate", "engine")),
+    ("fabric", ("__init__", "store", "mesh", "plane")),
+    ("session", ("__init__", "wire", "session", "outbox"))) for mod in mods]
+
+
+@pytest.mark.parametrize("path", PLANE_FILES)
+def test_the_planes_import_neither_torch_nor_jax_nor_the_jax_package(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN + ("torch", "triton")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_the_wire_frames_json_without_msgpack():
+    # the card's machine may lack msgpack: the codec falls back to JSON
+    code = textwrap.dedent("""
+        import json, sys
+        sys.modules["msgpack"] = None
+        from gpud_tpu_torch.session import wire
+        buf = wire.encode_payload({"a": 1})
+        print(json.dumps([wire._msgpack is None, buf[:1].decode(), wire.decode_payload(buf)]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout) == [True, "j", {"a": 1}]
 
 
 @pytest.mark.parametrize("module", ["gpud_tpu_torch.native",

@@ -67,12 +67,15 @@ PORT = types.SimpleNamespace(
 PKGS = (REF, PORT)
 IDS = ("ref", "port")
 
-# the daemon's tables, created by the stores of this slice
+# the daemon's tables, created by its stores and by the planes it wires in
 DAEMON_TABLES = (
     "tpud_health_transitions_v0_1",
     "tpud_health_last_state_v0_1",
     "tpud_remediation_audit_v0_1",
     "tpud_metrics_v0_1",
+    "tpud_fabric_matrix_v0_1",
+    "tpud_session_outbox_v0_1",
+    "tpud_session_outbox_ack_v0_1",
 )
 
 
