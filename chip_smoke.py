@@ -109,10 +109,37 @@ Phases, each printing its own lines:
              NVLink history the daemon wrote (one launch), and the native
              library (native.build()) against its Python twins, with µs per
              line and ms per scan of both; printed as the ``{"daemon": ...}``
-             line.
+             line;
+11. session - (after the daemon phase) the session transport and its
+             callers: the daemon as in the daemon phase (planes on) with a
+             control-plane endpoint and a boot token, in a child without
+             torch, pointed at a plane this script serves on 127.0.0.1
+             (tests/torch_loopback_plane.py, http.server; its gRPC front for
+             protocol v2), each child's session pinned to one protocol: v1,
+             then v2 where grpc and protobuf are installed. The plane asks
+             states, events and stateHistory, triggers the NVLink check,
+             injects an Xid 79 line into the child's kmsg fixture, reads the
+             states until the transition and the remediation status until
+             its dry-run row, sets the check healthy, reads the outbox status
+             and acks the highest seq delivered, asks packageStatus,
+             getPluginSpecs, peerStatus and an unknown method, gossips, drops
+             both streams (the session reconnects), answers one connect with
+             401 (the session parks) and hands the child a fresh token
+             through its FIFO (it resumes). Gates: every answer equals the
+             child's own stores read around it; the unknown method gets the
+             reference's error; one transition, one dry-run row, no executor
+             call; every outbox record decodes to its journal row, all
+             delivered up to the last ack, each reconnect resuming at the
+             durable watermark with a keyframe; no attempt while parked;
+             the v1 child's VmRSS within PLANES_VMRSS_MB of the planes-on
+             daemon child's, dirtied within the budget; no watchdog fire,
+             no writer drop. Then machine info against nvidia-smi, nproc
+             and ``free -b``, and (with cryptography) a signed update served
+             by the plane, installed into a temporary root, and a tampered
+             copy refused; printed as the ``{"session": ...}`` line.
 
-The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}`` and
-``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
+The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}``,
+``{"session": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -1061,11 +1088,12 @@ HEALTH_NOISE = (0.5, 0.5, 5.0, 3.0, 3.0, 15.0, 1.0e8)
 KMSG_WAIT_S = 30.0
 
 
-def load_corpus():
-    """tests/torch_xid_corpus.py: organic lines for every catalog entry and
-    lines that must match nothing (plain data, importing nothing)."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_xid_corpus", ROOT / "tests" / "torch_xid_corpus.py")
+def load_helper(name: str):
+    """A helper module of the port's tests, ``tests/<name>.py``, loaded from
+    its file: ``torch_xid_corpus`` (organic lines for every catalog entry and
+    lines that must match nothing; plain data) and ``torch_loopback_plane``
+    (the stdlib control plane of the session phase)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1275,7 +1303,7 @@ def expected(name: str, gpu) -> tuple:
 
 
 def health_xid(workdir: Path, inst) -> dict:
-    corpus = load_corpus()
+    corpus = load_helper("torch_xid_corpus")
     bdf = catalog.bdf_map(inst.devices())
     line("health", f"PCI map from NVML: {bdf or 'empty (NVML gives no PCI info)'}")
     # every organic line alone, through the whole pipeline
@@ -2235,7 +2263,7 @@ def native_parity(store_db: Path, workdir: Path, smi_line: str) -> dict:
     against its regex, the ragged scan against the Python walk on the
     daemon's NVLink rows; then µs per line and ms per scan of each path, the
     scan at one host's day (144 links x 1440 samples)."""
-    corpus = load_corpus()
+    corpus = load_helper("torch_xid_corpus")
     lines = [ln for ls in corpus.ORGANIC.values() for ln in ls] + list(corpus.BENIGN)
     records = [f"3,{1000 + i},{5_000_000 + 17 * i},-;{ln}" for i, ln in enumerate(lines)]
     saved = (kmsg_watcher._native_parse, catalog._NATIVE_PREFILTER)
@@ -2490,6 +2518,585 @@ def phase_daemon(workdir: Path, smi_line: str) -> dict:
            "field_values_guard_rc_by_spare_bytes": guard,
            "phase_s": time.perf_counter() - t_phase}
     print(json.dumps({"daemon": rec}), flush=True)
+    return rec
+
+
+# -- 11. session -------------------------------------------------------------------
+
+AGENT = "chip-smoke-agent"
+BOOT_TOKEN, FRESH_TOKEN = "boot-token", "fresh-token"
+PARK_WINDOW_S = 3.0  # how long a parked session is watched for connect attempts
+TIMING_REPS = 5  # requests per read-only method, for p50 and max
+XID79 = ("NVRM: Xid (PCI:0000:18:00): 79, pid='<unknown>', name=<unknown>, "
+         "GPU has fallen off the bus.")
+UNKNOWN_METHOD = "noSuchMethod"
+# the reference's answer to a method it does not have (session/dispatch.py)
+UNKNOWN_ANSWER = {"error": f"unknown method {UNKNOWN_METHOD!r}"}
+SESSION_PACKAGES = ("grpc", "google.protobuf", "cryptography", "yaml", "requests", "psutil",
+                    "aiohttp", "msgpack")
+
+
+def session_child(workdir: str, endpoint: str, protocol: str, v2_target: str, machine_id: str,
+                  boot_token: str, fresh_token: str) -> dict:
+    """The daemon on NVML as in the daemon phase (the 17 checks every 2 s,
+    the planes on at the phase's cadences), with a control-plane endpoint
+    and a boot token, its every session pinned to ``protocol``: run in a child
+    without torch. Each answer the dispatcher gives is held against the
+    daemon's own stores read just before and just after it; the child runs
+    until the parent writes ``done`` into the workdir, then reports."""
+    import json as _json
+    import resource
+    import sys as _sys
+    import threading
+    import time as _time
+    from pathlib import Path as _Path
+
+    from gpud_tpu_torch.config import default_config
+    from gpud_tpu_torch.daemon import Daemon
+    from gpud_tpu_torch.process import RunResult
+    from gpud_tpu_torch.scheduler import core as sched_core
+    from gpud_tpu_torch.session import dispatch as dispatch_mod
+    from gpud_tpu_torch.session import session as session_mod
+    from gpud_tpu_torch.session import wire
+
+    w = _Path(workdir)
+    poll_s = 2
+    err_kmsg = "accelerator-gpu-error-kmsg"
+
+    def say(msg):
+        print(f"[session {protocol}] {msg}", flush=True)
+
+    def vmrss_mb():
+        return int(_Path("/proc/self/statm").read_text().split()[1]) * resource.getpagesize() / 2**20
+
+    def dirty_mb():
+        return sum(int(r.split()[1]) for r in _Path("/proc/self/smaps").read_text().splitlines()
+                   if r.startswith(("Private_Dirty:", "Shared_Dirty:"))) / 1024.0
+
+    cfg = default_config(
+        data_dir=str(w), kmsg_path=str(w / "kmsg"), endpoint=endpoint, token=boot_token,
+        machine_id=machine_id, poll_interval_seconds=poll_s, remediation_interval_seconds=poll_s,
+        scrape_interval_seconds=poll_s, predict_interval_seconds=poll_s,
+        predict_calibrate_interval_seconds=poll_s, fabric_sweep_interval_seconds=poll_s,
+        outbox_replay_interval_seconds=poll_s, outbox_redeliver_seconds=600)
+    # every session the daemon opens speaks ``protocol``
+    session_init = session_mod.Session.__init__
+
+    def pinned(self, *a, **kw):
+        session_init(self, *a, **dict(kw, protocol=protocol, v2_target=v2_target))
+
+    session_mod.Session.__init__ = pinned
+    d = Daemon(cfg)
+    calls = []
+    d.remediation.executors.reboot_fn = lambda: (calls.append(["reboot"]), "refused")[1]
+    d.remediation.executors.run_command_fn = lambda argv, timeout=0, env=None: (
+        calls.append(list(argv)), RunResult(exit_code=1, error="refused"))[1]
+    for comp in d.registry.all():
+        if hasattr(comp, "POLL_INTERVAL"):
+            comp.POLL_INTERVAL = float(poll_s)
+
+    def view(req):
+        """What the daemon's stores say for one request, read apart from the
+        dispatcher; None for a method whose answer is an action's."""
+        method = req.get("method")
+        reg = d.registry
+        if method == "states":
+            comps = req.get("components") or None
+            return {"states": [{"component": c.name(),
+                                "states": [s.to_dict() for s in c.last_health_states()]}
+                               for c in reg.all()
+                               if (c.name() in comps if comps else c.name() in d.supported_names)]}
+        if method == "events":
+            return {"events": [{"component": c.name(),
+                                "events": [e.to_dict() for e in c.events(float(req["since"]))]}
+                               for c in reg.all()]}
+        if method == "stateHistory":
+            rows = d.health_ledger.history(component=req.get("component") or None,
+                                           since=float(req["since"]), limit=256)
+            d.health_ledger.annotate_with_events(rows)
+            out = {"history": rows, "count": len(rows),
+                   "flapping": d.health_ledger.flapping_components()}
+            return out
+        if method == "outboxStatus":
+            return {"outbox": d.outbox.stats(), "circuit": d.session_circuit.stats(),
+                    "wire": wire.codec_stats()}
+        if method == "outboxAck":
+            return {"acked_seq": d.outbox.acked_seq}
+        if method == "remediationStatus":
+            rows = d.remediation.audit.read(component=req.get("component") or None,
+                                            since=0.0, limit=32)
+            return {"remediation": d.remediation.status(), "attempts": rows, "count": len(rows)}
+        if method == "packageStatus":
+            return {"packages": [s.to_dict() for s in d.package_manager.status(probe=False)]}
+        if method == "getPluginSpecs":
+            return {"specs": [s.to_dict() for s in d.plugin_specs]}
+        if method == "peerStatus":
+            st, s = d.session_circuit.stats(), d.session
+            return {"peers": st["peers"], "peer_index": st["peer_index"],
+                    "failovers": st["failovers"], "circuit_state": st["state"],
+                    "endpoint": s.endpoint, "v2_target": s.v2_target, "connected": s.connected,
+                    "active_protocol": s.active_protocol, "reconnects": s.reconnect_count}
+        return None
+
+    answers, lock = {}, threading.Lock()
+    dispatch_call = dispatch_mod.Dispatcher.__call__
+
+    def call(self, req):
+        probe = req.get("probe") if isinstance(req, dict) else None
+        before = view(req) if probe else None
+        resp = dispatch_call(self, req)
+        if probe:
+            after = view(req)
+            with lock:
+                answers[probe] = {"answer": resp, "method": req.get("method"),
+                                  "stores": before is None or resp in (before, after)}
+        return resp
+
+    dispatch_mod.Dispatcher.__call__ = call
+    replay_ms = []
+    replay_tick = d._outbox_replay_tick
+
+    def timed_replay():
+        t0 = _time.perf_counter()
+        n = replay_tick()
+        if n:
+            replay_ms.append([n, (_time.perf_counter() - t0) * 1e3])
+        return n
+
+    d._outbox_replay_tick = timed_replay
+    rss, t_start = [], _time.perf_counter()
+    ru0 = resource.getrusage(resource.RUSAGE_SELF)
+    d.start()
+    while not (d.session is not None and d.session.connected):
+        if _time.perf_counter() - t_start > 60:
+            raise AssertionError(f"no session after 60 s: {d.session and d.session.last_connect_error}")
+        _time.sleep(0.002)
+    connect_ms = (_time.perf_counter() - t_start) * 1e3
+    if d.scheduler.wait_first_runs(timeout=60.0) is None:
+        raise AssertionError("first runs did not complete")
+    say(f"connected ({d.session.active_protocol}) {connect_ms:.1f} ms after start()")
+    (w / "connected").write_text("1")
+    while not (w / "done").exists():
+        if _time.perf_counter() - t_start > 240:
+            raise AssertionError("the parent never finished its script")
+        rss.append(vmrss_mb())
+        _time.sleep(0.25)
+    ru1, t_end = resource.getrusage(resource.RUSAGE_SELF), _time.perf_counter()
+    d.storage_writer.flush()
+    session = d.session
+    rec = {
+        "protocol": protocol, "active_protocol": session.active_protocol,
+        "connect_ms": connect_ms, "answers": answers,
+        "journal": [list(r) for r in d.outbox.pending(after=0)],
+        "outbox": d.outbox.stats(),
+        "transitions": [(t["from"], t["to"]) for t in
+                        reversed(d.health_ledger.history(component=err_kmsg))],
+        "audit": [(r["action"], r["decision"], r["outcome"])
+                  for r in d.remediation.audit.read(component=err_kmsg)
+                  if r["action"] != "predicted_warning"],
+        "executor_calls": calls,
+        "replay_batches": replay_ms,
+        "session": {"reconnects": session.reconnect_count,
+                    "connect_attempts": session.connect_attempts,
+                    "fresh_token": session.token == fresh_token,
+                    "auth_failed": session.auth_failed},
+        "cpu_s_per_s": (ru1.ru_utime + ru1.ru_stime - ru0.ru_utime - ru0.ru_stime)
+                       / (t_end - t_start),
+        "vmrss_peak_sampled_mb": max(rss + [vmrss_mb()]), "dirty_mb": dirty_mb(),
+        "watchdog_fires": sum(v for _k, v in sched_core._c_watchdog.labels_values()),
+        "writer_dropped": d.storage_writer.stats()["dropped_ops"],
+        "window_s": t_end - t_start,
+    }
+    d.stop()
+    rec["torch_loaded"] = sorted(m for m in _sys.modules if m.split(".")[0] == "torch")
+    rec["grpc_loaded"] = "grpc" in _sys.modules
+    return _json.loads(_json.dumps(rec))
+
+
+def have(module: str) -> bool:
+    try:
+        importlib.import_module(module)
+    except ImportError:
+        return False
+    return True
+
+
+class Script:
+    """The control plane's side of the session phase: requests in order,
+    each with its own ``req_id`` (and a ``probe`` the child files its own
+    view under), and the answers' host ms."""
+
+    def __init__(self, plane, wait_s: float = 30.0):
+        self.plane, self.wait_s, self.n = plane, wait_s, 0
+        self.ms = {}
+
+    def ask(self, method: str, **params) -> dict:
+        self.n += 1
+        rid = f"q{self.n}-{method}"
+        self.plane.send_request(AGENT, rid, {"method": method, "probe": rid, **params})
+        got = self.plane.wait_response(rid, self.wait_s)
+        if got is None:
+            raise AssertionError(f"no answer to {rid}")
+        self.ms.setdefault(method, []).append(
+            (self.plane.arrived[rid] - self.plane.sent[rid]) * 1e3)
+        return got["data"]
+
+    def acked_through(self, target: int) -> int:
+        """Ack everything delivered once the plane holds every record up to
+        ``target`` (the journal's last seq when it was read)."""
+        deadline = time.perf_counter() + self.wait_s
+        while max((r[1] for r in self.plane.records()), default=0) < target:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"records up to seq {target} never arrived")
+            time.sleep(0.02)
+        top = max(r[1] for r in self.plane.records())
+        got = self.ask("outboxAck", seq=top)
+        if got != {"acked_seq": top}:
+            raise AssertionError(f"outboxAck({top}): {got}")
+        return top
+
+
+def run_session_child(workdir: Path, plane_mod, protocol: str, lib: Path) -> dict:
+    """One daemon child against a loopback plane speaking ``protocol``: the
+    script of requests, a dropped connection, a 401 that parks the session
+    and a fresh token through the FIFO; the gates on what came back."""
+    from gpud_tpu_torch.session import wire
+    from gpud_tpu_torch.session.v2 import session_pb2
+
+    w = workdir / f"session_{protocol}"
+    w.mkdir()
+    (w / "kmsg").touch()
+    plane = plane_mod.LoopbackPlane(wire=wire, pb=session_pb2 if protocol == "v2" else None)
+    plane.start()
+    v2_target = f"http://127.0.0.1:{plane.start_v2()}" if protocol == "v2" else ""
+    code = child_code(session_child, call="{'session_child': session_child(*sys.argv[1:])}")
+    env = dict(os.environ, TPUD_NATIVE_LIB=str(lib))
+    for k in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
+        env.pop(k, None)
+    out_path, err_path = w / "child.out", w / "child.err"
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(w), plane.endpoint, protocol,
+                                 v2_target, AGENT, BOOT_TOKEN, FRESH_TOKEN], cwd=ROOT, env=env,
+                                stdout=out_f, stderr=err_f)
+    script = Script(plane)
+    err_kmsg = ERR_KMSG
+    try:
+        deadline = time.perf_counter() + 90
+        while not (w / "connected").exists():
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the session child never connected: "
+                                     f"{err_path.read_text()[-4000:]}")
+            time.sleep(0.05)
+        since = time.time() - 3600
+        # 1. the stores, TIMING_REPS times each
+        for _ in range(TIMING_REPS):
+            script.ask("states")
+            script.ask("events", since=since)
+            script.ask("stateHistory", since=since)
+        # 2. a trigger, 3. the fault through the session into the kmsg fixture
+        trig = script.ask("triggerComponent", component="accelerator-gpu-nvlink")
+        if trig != {"status": "triggered", "components": ["accelerator-gpu-nvlink"]}:
+            raise AssertionError(f"triggerComponent: {trig}")
+        t_inject = time.perf_counter()
+        inj = script.ask("injectFault", kernel_message=XID79)
+        if inj.get("status") != "ok" or inj.get("writes") != 1:
+            raise AssertionError(f"injectFault: {inj}")
+        # 4. the states show the transition
+        deadline = time.perf_counter() + 30
+        while True:
+            st = script.ask("states", components=[err_kmsg])
+            if st["states"][0]["states"][0]["health"] == "Unhealthy":
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{err_kmsg} never Unhealthy: {st}")
+            time.sleep(0.05)
+        # the remediation engine decides on it: one dry-run row
+        deadline = time.perf_counter() + 30
+        while not [a for a in script.ask("remediationStatus", component=err_kmsg)["attempts"]
+                   if a["action"] != "predicted_warning"]:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"no audit row for {err_kmsg}")
+            time.sleep(0.05)
+        # the transition reaches the plane as an outbox record
+        deadline = time.perf_counter() + 30
+        while not [r for r in plane.records() if r[3] == "transition"
+                   and r[5].get("component") == err_kmsg and r[5].get("to") == "Unhealthy"]:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the Xid's transition never reached the plane")
+            time.sleep(0.01)
+        tx = next(r for r in plane.records() if r[3] == "transition"
+                  and r[5].get("component") == err_kmsg and r[5].get("to") == "Unhealthy")
+        inject_to_plane_ms = (tx[7] - t_inject) * 1e3
+        # 5. set-healthy, 6. the outbox's state, then the ack
+        if script.ask("setHealthy", component=err_kmsg) != {"status": "ok"}:
+            raise AssertionError("setHealthy")
+        for _ in range(TIMING_REPS):
+            ob = script.ask("outboxStatus")
+        acks = [(time.perf_counter(), script.acked_through(ob["outbox"]["last_seq"]))]
+        # 7. packages, plugins, peers; 8. a method the agent does not have
+        for _ in range(TIMING_REPS):
+            script.ask("packageStatus")
+            script.ask("getPluginSpecs")
+            peer = script.ask("peerStatus")
+        if (peer["connected"], peer["active_protocol"], peer["endpoint"]) != (
+                True, protocol, plane.endpoint):
+            raise AssertionError(f"peerStatus: {peer}")
+        unknown = script.ask(UNKNOWN_METHOD)
+        if unknown != UNKNOWN_ANSWER:
+            raise AssertionError(f"unknown method: {unknown}")
+        # a gossip (its outbox record is pending), then both streams closed once
+        gossip = script.ask("gossip")
+        if gossip.get("status") not in ("started", "ok"):
+            raise AssertionError(f"gossip: {gossip}")
+        conns = len(plane.connections)
+        plane.drop(AGENT)
+        t_drop = time.perf_counter()
+        while len(plane.connections) == conns:
+            if time.perf_counter() - t_drop > 30:
+                raise AssertionError("no reconnect after the drop")
+            time.sleep(0.01)
+        reconnect_ms = (plane.connections[-1]["t"] - t_drop) * 1e3
+        # the reconnected session's write stream is open before the token is
+        # revoked (v1 opens it after the read stream)
+        if protocol == "v1":
+            deadline = time.perf_counter() + 30
+            while not any(a[0] > plane.connections[-1]["t"] and a[2] == "write"
+                          for a in plane.attempts):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the reconnected session opened no write stream")
+                time.sleep(0.01)
+        # one connect answered 401: the session parks until the token changes
+        plane.accept_token = FRESH_TOKEN
+        n_attempts = len(plane.attempts)
+        plane.drop(AGENT)
+        deadline = time.perf_counter() + 30
+        while not any(a[3] == 401 for a in plane.attempts[n_attempts:]):
+            if time.perf_counter() > deadline:
+                raise AssertionError("no connect attempt after the second drop")
+            time.sleep(0.01)
+        t_401 = next(a[0] for a in plane.attempts[n_attempts:] if a[3] == 401)
+        time.sleep(PARK_WINDOW_S)
+        parked = [a for a in plane.attempts[n_attempts:] if a[0] > t_401]
+        if parked:
+            raise AssertionError(f"a parked session tried to connect: {parked}")
+        conns = len(plane.connections)
+        t_fifo = time.perf_counter()
+        fd = os.open(str(w / "tpud.fifo"), os.O_WRONLY | os.O_NONBLOCK)
+        try:
+            os.write(fd, (FRESH_TOKEN + "\n").encode())
+        finally:
+            os.close(fd)
+        while len(plane.connections) == conns:
+            if time.perf_counter() - t_fifo > 30:
+                raise AssertionError("the fresh token never reconnected the session")
+            time.sleep(0.01)
+        fifo_to_connect_ms = (plane.connections[-1]["t"] - t_fifo) * 1e3
+        # the rest delivered and acked; the backlog 0
+        for _ in range(20):
+            ob = script.ask("outboxStatus")
+            if ob["outbox"]["backlog"] == 0:
+                break
+            acks.append((time.perf_counter(), script.acked_through(ob["outbox"]["last_seq"])))
+        if ob["outbox"]["backlog"] != 0:
+            raise AssertionError(f"backlog after the acks: {ob['outbox']}")
+        (w / "done").write_text("1")
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        plane.stop()
+    out = out_path.read_text().splitlines()
+    for row in out[:-1] if rc == 0 else out:
+        print(row, flush=True)
+    if rc != 0 or not out:
+        sys.stderr.write(err_path.read_text()[-8000:])
+        raise AssertionError(f"the session child ({protocol}) exited {rc}")
+    child = json.loads(out[-1])["session_child"]
+
+    # every answer as the plane received it is the one the child gave, and
+    # the child's stores said the same
+    received = {r["req_id"]: r["data"] for r in plane.responses}
+    bad = [p for p, a in child["answers"].items() if received.get(p) != a["answer"] or not a["stores"]]
+    if bad or len(child["answers"]) != script.n:
+        raise AssertionError(f"answers that differ from the child's stores: {bad}; "
+                             f"{len(child['answers'])} of {script.n} filed")
+    # the Xid: one transition, one dry-run row, no executor call
+    if child["transitions"] != [["Healthy", "Unhealthy"], ["Unhealthy", "Healthy"]] or \
+            child["audit"] != [["reboot_system", "dry_run", "dry_run"]] or child["executor_calls"]:
+        raise AssertionError(f"the Xid: {child['transitions']}, {child['audit']}, "
+                             f"{child['executor_calls']}")
+    # the outbox: every record decodes to its journal row; every seq up to
+    # the last ack arrived; after each reconnect delivery resumes at the
+    # durable watermark with a keyframe and re-sends nothing acked
+    journal = {row[0]: row for row in child["journal"]}
+    records = plane.records()
+    wrong = [r[1] for r in records if journal.get(r[1]) != [r[1], r[2], r[3], r[4], r[5]]]
+    last_ack = acks[-1][1]
+    missing = sorted(set(s for s in journal if s <= last_ack) - {r[1] for r in records})
+    if wrong or missing or child["outbox"]["acked_seq"] != last_ack:
+        raise AssertionError(f"outbox: records {wrong} differ from the journal, {missing} "
+                             f"never arrived; acked {child['outbox']['acked_seq']} != {last_ack}")
+    resumes = []
+    for i, conn in enumerate(plane.connections):
+        seqs = [r[0] for r in conn["records"]]
+        if seqs != sorted(set(seqs)):
+            raise AssertionError(f"connection {i}: seqs out of order {seqs}")
+        if i == 0 or not conn["records"]:
+            continue
+        mark = max((s for t, s in acks if t < conn["t"]), default=0)
+        first = conn["records"][0]
+        if first[0] != mark + 1 or not first[5] or seqs[0] <= mark:
+            raise AssertionError(f"connection {i} resumed at seq {first[0]} (keyframe "
+                                 f"{first[5]}) over the acked watermark {mark}")
+        resumes.append([mark, first[0]])
+    if not resumes:
+        raise AssertionError("no delivery resumed after a reconnect")
+    if child["watchdog_fires"] or child["writer_dropped"] or child["torch_loaded"]:
+        raise AssertionError(f"watchdog {child['watchdog_fires']}, writer drops "
+                             f"{child['writer_dropped']}, torch {child['torch_loaded']}")
+    if child["dirty_mb"] > DAEMON_RSS_BUDGET_MB:
+        raise AssertionError(f"session child dirtied {child['dirty_mb']:.1f} MB")
+    per_method = {m: [statistics.median(v), max(v), len(v)] for m, v in script.ms.items()}
+    rec = {"protocol": protocol, "connect_ms": child["connect_ms"], "host_ms_by_method": per_method,
+           "inject_to_plane_ms": inject_to_plane_ms, "replay_batches": child["replay_batches"],
+           "reconnect_after_drop_ms": reconnect_ms, "fifo_to_connect_ms": fifo_to_connect_ms,
+           "connections": len(plane.connections), "resumed_at": resumes,
+           "attempts": [[a[1], a[2], a[3]] for a in plane.attempts],
+           "records_received": len(records), "journal_rows": len(journal), "acked_seq": last_ack,
+           "cpu_s_per_s": child["cpu_s_per_s"], "vmrss_peak_sampled_mb":
+           child["vmrss_peak_sampled_mb"], "dirty_mb": child["dirty_mb"],
+           "grpc_loaded": child["grpc_loaded"], "window_s": child["window_s"]}
+    line("session", f"{protocol}: connected {child['connect_ms']:.1f} ms after start(); "
+                    f"{script.n} requests answered as the child's stores said; the Xid's "
+                    f"transition reached the plane {inject_to_plane_ms:.1f} ms after injectFault; "
+                    f"{len(records)} outbox records over {len(plane.connections)} connections, "
+                    f"resumed at {resumes} (watermark, first seq), acked {last_ack}, backlog 0; "
+                    f"reconnect {reconnect_ms:.1f} ms after the drop, {fifo_to_connect_ms:.1f} ms "
+                    f"after the FIFO token; a parked session made no attempt in "
+                    f"{PARK_WINDOW_S} s; replay batches [records, host ms] "
+                    f"{child['replay_batches']}; {child['cpu_s_per_s']:.5f} CPU s per s; VmRSS "
+                    f"sampled peak {child['vmrss_peak_sampled_mb']:.1f} MB, dirtied "
+                    f"{child['dirty_mb']:.1f} MB; [p50, max, n] host ms by method "
+                    f"{json.dumps({k: [round(v[0], 3), round(v[1], 3), v[2]] for k, v in per_method.items()})}")
+    return rec
+
+
+def check_machine_info() -> dict:
+    """``machine_info`` on the card's machine against nvidia-smi, nproc and
+    ``free -b``."""
+    from gpud_tpu_torch import machine_info
+
+    inst = gpu_instance.NVMLBackend()
+    mi = machine_info.get_machine_info(gpu=inst, machine_id=AGENT)
+    rows = [[c.strip() for c in r.split(",")] for r in smi(
+        "--query-gpu=name,uuid,serial,pci.bus_id,driver_version,memory.total",
+        "--format=csv,noheader").splitlines() if r.strip()]
+    g = mi.gpu_info
+    got = [[g.product, d.uuid, d.serial, d.pci_bus_id or "[N/A]", g.driver_version,
+            f"{g.memory_total_bytes // 2**20} MiB"] for d in g.gpus]
+    if got != rows:
+        raise AssertionError(f"machine info {got} != nvidia-smi {rows}")
+    nproc = int(tool("nproc"))
+    mem = int(tool("free", "-b").splitlines()[1].split()[1])
+    if (mi.cpu_logical_cores, mi.memory_total_bytes) != (nproc, mem):
+        raise AssertionError(f"machine info cores {mi.cpu_logical_cores}, memory "
+                             f"{mi.memory_total_bytes}; nproc {nproc}, free -b {mem}")
+    inst.shutdown()
+    line("session", f"machine info equals nvidia-smi {rows}, nproc {nproc}, free -b {mem}; "
+                    f"architecture {g.architecture}, CUDA {g.cuda_version}, "
+                    f"{len(mi.nics)} NICs, {len(mi.disks)} disks")
+    return {"gpu_info": g.to_dict(), "cpu_logical_cores": nproc, "memory_total_bytes": mem}
+
+
+def signed_update(workdir: Path, plane_mod) -> dict:
+    """The built-in update pipeline against the loopback plane: keys made
+    here, a small tarball signed, served and installed into a temporary
+    root, then a tampered copy refused."""
+    import tarfile
+
+    from gpud_tpu_torch import update_install
+    from gpud_tpu_torch.release import distsign
+
+    w = workdir / "update"
+    w.mkdir()
+    _priv_root, root_pub = distsign.write_keypair(str(w / "keys"), "root")
+    signing_key, signing_pub = distsign.write_keypair(str(w / "keys"), "signing")
+    distsign.sign_key(str(w / "keys" / "root.key"), signing_pub)
+    version = "9.9.9"
+    src = w / "src"
+    (src / "bin").mkdir(parents=True)
+    (src / "bin" / "tpud").write_text("#!/bin/sh\necho tpud 9.9.9\n")
+    pkg = w / f"tpud-{version}.tar.gz"
+    with tarfile.open(pkg, "w:gz") as tf:
+        tf.add(src / "bin", arcname="bin")
+    distsign.sign_package(signing_key, str(pkg))
+    plane = plane_mod.LoopbackPlane().start()
+    try:
+        plane.files = {
+            pkg.name: pkg.read_bytes(), pkg.name + ".sig": Path(str(pkg) + ".sig").read_bytes(),
+            "signing.pub": Path(signing_pub).read_bytes(),
+            "signing.pub.rootsig": Path(signing_pub + ".rootsig").read_bytes()}
+        root = w / "root"
+        t0 = time.perf_counter()
+        err = update_install.perform_update(version, base_url=plane.endpoint,
+                                            install_dir=str(root), root_pub=root_pub)
+        install_ms = (time.perf_counter() - t0) * 1e3
+        current = os.readlink(root / "current")
+        if err is not None or current != f"versions/{version}" or \
+                (root / "current" / "bin" / "tpud").read_text() != "#!/bin/sh\necho tpud 9.9.9\n":
+            raise AssertionError(f"perform_update: {err}, current -> {current}")
+        # a tampered copy of another version, signed as the first
+        bad = f"tpud-9.9.10.tar.gz"
+        plane.files[bad] = pkg.read_bytes() + b"\0"
+        plane.files[bad + ".sig"] = plane.files[pkg.name + ".sig"]
+        refused = update_install.perform_update("9.9.10", base_url=plane.endpoint,
+                                                install_dir=str(root), root_pub=root_pub)
+        if not refused or not refused.startswith("package signature rejected") or \
+                os.readlink(root / "current") != f"versions/{version}":
+            raise AssertionError(f"the tampered package: {refused}")
+    finally:
+        plane.stop()
+    line("session", f"signed update: {version} verified and installed in {install_ms:.1f} ms, "
+                    f"current -> {current}; the tampered package refused ({refused})")
+    return {"install_ms": install_ms, "current": current, "tampered": refused}
+
+
+def phase_session(workdir: Path, smi_line: str, planes_on_peak_mb: float) -> dict:
+    """The session transport and its callers on the card's host: the daemon
+    on NVML pointed at a loopback control plane, over protocol v1 and, where
+    ``grpc`` and ``protobuf`` are installed, v2; then machine info against
+    nvidia-smi and, with ``cryptography``, a signed update."""
+    t_phase = time.perf_counter()
+    have_pkgs = {m: have(m) for m in SESSION_PACKAGES}
+    line("session", f"packages: {have_pkgs}")
+    plane_mod = load_helper("torch_loopback_plane")
+    lib = native.build(workdir / "native_session")
+    rec = {"card": smi_line, "packages": have_pkgs, "waited": {}}
+    rec["v1"] = run_session_child(workdir, plane_mod, "v1", lib)
+    if rec["v1"]["vmrss_peak_sampled_mb"] > planes_on_peak_mb + PLANES_VMRSS_MB:
+        raise AssertionError(f"the v1 session child's VmRSS {rec['v1']['vmrss_peak_sampled_mb']:.1f}"
+                             f" MB, more than {PLANES_VMRSS_MB} MB over the planes-on child's "
+                             f"{planes_on_peak_mb:.1f} MB")
+    if rec["v1"]["grpc_loaded"]:
+        raise AssertionError("the v1 child loaded grpc")
+    if have_pkgs["grpc"] and have_pkgs["google.protobuf"]:
+        rec["v2"] = run_session_child(workdir, plane_mod, "v2", lib)
+    else:
+        rec["waited"]["v2"] = "grpc or protobuf is not installed"
+        line("session", "v2 waits: grpc or protobuf is not installed on this machine")
+    rec["machine_info"] = check_machine_info()
+    if have_pkgs["cryptography"]:
+        rec["signed_update"] = signed_update(workdir, plane_mod)
+    else:
+        rec["waited"]["signed_update"] = "cryptography is not installed"
+        line("session", "the signed update waits: cryptography is not installed here")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    line("session", f"VmRSS sampled peak: v1 {rec['v1']['vmrss_peak_sampled_mb']:.1f} MB (planes-on "
+                    f"daemon {planes_on_peak_mb:.1f}, ceiling +{PLANES_VMRSS_MB})"
+                    + (f", v2 {rec['v2']['vmrss_peak_sampled_mb']:.1f} MB (not gated)"
+                       if "v2" in rec else ""))
+    print(json.dumps({"session": rec}), flush=True)
     return rec
 
 
@@ -2880,6 +3487,7 @@ def main() -> int:
         phase_health(workdir, smi)
         phase_host(workdir, smi, adapter["c1"])
         daemon = phase_daemon(workdir, smi)
+        phase_session(workdir, smi, daemon["steady"]["vmrss_peak_sampled_mb"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()

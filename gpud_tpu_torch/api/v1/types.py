@@ -4,9 +4,10 @@ These are the core data types exchanged between components, the local HTTP
 API, the client SDK, and the control-plane session. They mirror the semantic
 surface of the reference daemon's API types (reference: api/v1/types.go:17-259).
 This module holds health states, repair actions, suggested actions, events,
-metrics, the component wrappers and the block-device tree the disk check
-reads; the rest of the machine and GPU inventory types come with the
-device-free daemon.
+metrics, the component wrappers, the block-device tree the disk check
+reads, the package status, the machine and GPU inventory (``MachineInfo``
+with ``GPUInfo`` where the reference package has ``TPUInfo``) and the login
+request and response.
 
 Everything is a plain dataclass with explicit ``to_dict``/``from_dict`` so
 the JSON wire format is stable and dependency-free.
@@ -370,4 +371,345 @@ class BlockDeviceInfo:
             children=[
                 cls.from_dict(c) for c in d.get("children", []) or []
             ],
+        )
+
+
+# ---------------------------------------------------------------------------
+# Package status (reference: api/v1/types.go:167-181)
+# ---------------------------------------------------------------------------
+
+class PackagePhase:
+    INSTALLED = "Installed"
+    INSTALLING = "Installing"
+    UNKNOWN = "Unknown"
+    SKIPPED = "Skipped"
+
+
+@dataclass
+class PackageStatus:
+    name: str = ""
+    phase: str = PackagePhase.UNKNOWN
+    status: str = ""
+    current_version: str = ""
+    target_version: str = ""
+    progress: int = 0
+    is_installed: bool = False
+    installing: bool = False
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "phase": self.phase,
+            "status": self.status,
+            "current_version": self.current_version,
+            "target_version": self.target_version,
+            "progress": self.progress,
+            "is_installed": self.is_installed,
+            "installing": self.installing,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "PackageStatus":
+        return cls(
+            name=d.get("name", ""),
+            phase=d.get("phase", PackagePhase.UNKNOWN),
+            status=d.get("status", ""),
+            current_version=d.get("current_version", ""),
+            target_version=d.get("target_version", ""),
+            progress=int(d.get("progress", 0)),
+            is_installed=bool(d.get("is_installed", False)),
+            installing=bool(d.get("installing", False)),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Machine info tree (reference package: gpud_tpu/api/v1/types.py, TPUInfo
+# and TPUChipInfo; reference: api/v1/types.go MachineGPUInfo and
+# MachineGPUInstance) — GPU edition
+# ---------------------------------------------------------------------------
+
+@dataclass
+class GPUDeviceInfo:
+    """One GPU of the host (reference: api/v1/types.go MachineGPUInstance):
+    its UUID, serial number, minor number (``/dev/nvidia<minor>``) and PCI
+    bus id."""
+
+    uuid: str = ""
+    serial: str = ""
+    minor_number: int = -1
+    pci_bus_id: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "uuid": self.uuid,
+            "serial": self.serial,
+            "minor_number": self.minor_number,
+            "pci_bus_id": self.pci_bus_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "GPUDeviceInfo":
+        return cls(
+            uuid=d.get("uuid", ""),
+            serial=d.get("serial", ""),
+            minor_number=int(d.get("minor_number", -1)),
+            pci_bus_id=d.get("pci_bus_id", ""),
+        )
+
+
+@dataclass
+class GPUInfo:
+    """The host's GPUs, reported in MachineInfo where the reference package
+    reports ``TPUInfo`` (reference: api/v1/types.go MachineGPUInfo, with the
+    driver and CUDA versions beside it)."""
+
+    product: str = ""             # e.g. "NVIDIA H100 80GB HBM3"
+    manufacturer: str = ""        # "NVIDIA"
+    architecture: str = ""        # e.g. "hopper"
+    driver_version: str = ""
+    cuda_version: str = ""        # the CUDA version the driver supports
+    memory_total_bytes: int = 0   # per GPU
+    gpus: List[GPUDeviceInfo] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "product": self.product,
+            "manufacturer": self.manufacturer,
+            "architecture": self.architecture,
+            "driver_version": self.driver_version,
+            "cuda_version": self.cuda_version,
+            "memory_total_bytes": self.memory_total_bytes,
+            "gpus": [g.to_dict() for g in self.gpus],
+        }
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> Optional["GPUInfo"]:
+        if not d:
+            return None
+        return cls(
+            product=d.get("product", ""),
+            manufacturer=d.get("manufacturer", ""),
+            architecture=d.get("architecture", ""),
+            driver_version=d.get("driver_version", ""),
+            cuda_version=d.get("cuda_version", ""),
+            memory_total_bytes=int(d.get("memory_total_bytes", 0)),
+            gpus=[GPUDeviceInfo.from_dict(g) for g in d.get("gpus", []) or []],
+        )
+
+
+@dataclass
+class DiskInfo:
+    device: str = ""
+    mount_point: str = ""
+    fstype: str = ""
+    total_bytes: int = 0
+    used_bytes: int = 0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "device": self.device,
+            "mount_point": self.mount_point,
+            "fstype": self.fstype,
+            "total_bytes": self.total_bytes,
+            "used_bytes": self.used_bytes,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DiskInfo":
+        return cls(
+            device=d.get("device", ""),
+            mount_point=d.get("mount_point", ""),
+            fstype=d.get("fstype", ""),
+            total_bytes=int(d.get("total_bytes", 0)),
+            used_bytes=int(d.get("used_bytes", 0)),
+        )
+
+
+@dataclass
+class NICInfo:
+    name: str = ""
+    mac: str = ""
+    addresses: List[str] = field(default_factory=list)
+    mtu: int = 0
+    speed_mbps: int = 0
+    driver: str = ""       # kernel driver bound to the device (gve, virtio_net, ...)
+    virtual: bool = False  # no backing device in /sys/class/net/<nic>/device
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "mac": self.mac,
+            "addresses": list(self.addresses),
+            "mtu": self.mtu,
+            "speed_mbps": self.speed_mbps,
+            "driver": self.driver,
+            "virtual": self.virtual,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "NICInfo":
+        return cls(
+            name=d.get("name", ""),
+            mac=d.get("mac", ""),
+            addresses=list(d.get("addresses", []) or []),
+            mtu=int(d.get("mtu", 0)),
+            speed_mbps=int(d.get("speed_mbps", 0)),
+            driver=d.get("driver", ""),
+            virtual=bool(d.get("virtual", False)),
+        )
+
+
+@dataclass
+class MachineInfo:
+    """Host description sent in the login/gossip requests
+    (reference: api/v1/types.go:261-361)."""
+
+    machine_id: str = ""
+    hostname: str = ""
+    os: str = ""
+    kernel_version: str = ""
+    boot_id: str = ""
+    uptime_seconds: int = 0
+    cpu_model: str = ""
+    cpu_logical_cores: int = 0
+    memory_total_bytes: int = 0
+    provider: str = ""
+    region: str = ""
+    instance_type: str = ""
+    public_ip: str = ""
+    private_ip: str = ""
+    tpud_version: str = ""
+    containerized: bool = False
+    gpu_info: Optional[GPUInfo] = None
+    disks: List[DiskInfo] = field(default_factory=list)
+    nics: List[NICInfo] = field(default_factory=list)
+    block_devices: List[BlockDeviceInfo] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "machine_id": self.machine_id,
+            "hostname": self.hostname,
+            "os": self.os,
+            "kernel_version": self.kernel_version,
+            "boot_id": self.boot_id,
+            "uptime_seconds": self.uptime_seconds,
+            "cpu_model": self.cpu_model,
+            "cpu_logical_cores": self.cpu_logical_cores,
+            "memory_total_bytes": self.memory_total_bytes,
+            "provider": self.provider,
+            "region": self.region,
+            "instance_type": self.instance_type,
+            "public_ip": self.public_ip,
+            "private_ip": self.private_ip,
+            "tpud_version": self.tpud_version,
+            "containerized": self.containerized,
+            "disks": [x.to_dict() for x in self.disks],
+            "nics": [x.to_dict() for x in self.nics],
+            "block_devices": [x.to_dict() for x in self.block_devices],
+        }
+        if self.gpu_info is not None:
+            d["gpu_info"] = self.gpu_info.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "MachineInfo":
+        return cls(
+            machine_id=d.get("machine_id", ""),
+            hostname=d.get("hostname", ""),
+            os=d.get("os", ""),
+            kernel_version=d.get("kernel_version", ""),
+            boot_id=d.get("boot_id", ""),
+            uptime_seconds=int(d.get("uptime_seconds", 0)),
+            cpu_model=d.get("cpu_model", ""),
+            cpu_logical_cores=int(d.get("cpu_logical_cores", 0)),
+            memory_total_bytes=int(d.get("memory_total_bytes", 0)),
+            provider=d.get("provider", ""),
+            region=d.get("region", ""),
+            instance_type=d.get("instance_type", ""),
+            public_ip=d.get("public_ip", ""),
+            private_ip=d.get("private_ip", ""),
+            tpud_version=d.get("tpud_version", ""),
+            containerized=bool(d.get("containerized", False)),
+            gpu_info=GPUInfo.from_dict(d.get("gpu_info")),
+            disks=[DiskInfo.from_dict(x) for x in d.get("disks", []) or []],
+            nics=[NICInfo.from_dict(x) for x in d.get("nics", []) or []],
+            block_devices=[
+                BlockDeviceInfo.from_dict(x)
+                for x in d.get("block_devices", []) or []
+            ],
+        )
+
+
+# ---------------------------------------------------------------------------
+# Login / gossip (reference: api/v1/login.go:6-80, api/v1/gossip.go:3-13)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LoginRequest:
+    token: str = ""
+    machine_id: str = ""
+    network: Dict[str, str] = field(default_factory=dict)
+    machine_info: Optional[MachineInfo] = None
+    node_labels: Dict[str, str] = field(default_factory=dict)
+    provider: str = ""
+    region: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "token": self.token,
+            "machine_id": self.machine_id,
+            "network": dict(self.network),
+            "node_labels": dict(self.node_labels),
+            "provider": self.provider,
+            "region": self.region,
+        }
+        if self.machine_info is not None:
+            d["machine_info"] = self.machine_info.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LoginRequest":
+        # the manager side decodes what the agent encodes (the reference
+        # only ships the agent; our runnable control plane needs both
+        # directions of the login wire type)
+        return cls(
+            token=d.get("token", ""),
+            machine_id=d.get("machine_id", ""),
+            network=dict(d.get("network", {}) or {}),
+            machine_info=(
+                MachineInfo.from_dict(d["machine_info"])
+                if d.get("machine_info")
+                else None
+            ),
+            node_labels=dict(d.get("node_labels", {}) or {}),
+            provider=d.get("provider", ""),
+            region=d.get("region", ""),
+        )
+
+
+@dataclass
+class LoginResponse:
+    machine_id: str = ""
+    token: str = ""
+    machine_proof: str = ""
+    error: str = ""
+    status: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "machine_id": self.machine_id,
+            "token": self.token,
+            "machine_proof": self.machine_proof,
+            "error": self.error,
+            "status": self.status,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LoginResponse":
+        return cls(
+            machine_id=d.get("machine_id", ""),
+            token=d.get("token", ""),
+            machine_proof=d.get("machine_proof", ""),
+            error=d.get("error", ""),
+            status=d.get("status", ""),
         )

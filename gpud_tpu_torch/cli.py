@@ -11,6 +11,14 @@ checks this host's GPUs once (through NVML, or the mock backend under
 ``compact``, ``metadata``, ``history`` and ``remediation`` (each with
 ``--data-dir``) read the daemon's state DB offline, daemon up or not, and
 print what ``tpud``'s subcommands of the same names print.
+
+``machine-info`` prints this host's machine info as JSON (``gpu_info`` from
+NVML); ``release`` signs and verifies release artifacts (``gen-root-key``,
+``gen-signing-key``, ``sign-key``, ``sign-package``, ``verify-package``;
+needs ``cryptography``); ``update`` sets or checks the target version, or
+installs one now (``--install``); ``list-plugins``, ``custom-plugins FILE``
+and ``run-plugin-group FILE [--tag T]`` list, validate and run custom
+plugins. Each prints what ``tpud``'s subcommand of the same name prints.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import List, Optional
 
 from gpud_tpu_torch import config as cfgmod
 from gpud_tpu_torch.log import AuditLogger, set_audit_logger, setup as log_setup
+from gpud_tpu_torch.version import __version__
 
 
 def _add_common_flags(p: argparse.ArgumentParser) -> None:
@@ -245,6 +254,141 @@ def cmd_fleet_scan(args) -> int:
     return 1 if res["summary"]["unhealthy"] else 0
 
 
+def cmd_machine_info(args) -> int:
+    from gpud_tpu_torch.gpu.instance import new_instance
+    from gpud_tpu_torch.machine_info import get_machine_info
+
+    mi = get_machine_info(gpu=new_instance(accelerator_type=args.accelerator_type))
+    print(json.dumps(mi.to_dict(), indent=2, sort_keys=True))
+    return 0
+
+
+def cmd_list_plugins(args) -> int:
+    """Reference: cmd/gpud list-plugins."""
+    import os
+
+    from gpud_tpu_torch.plugins.spec import load_specs
+
+    cfg = _build_config(args)
+    path = cfg.resolved_plugin_specs_file()
+    if not os.path.isfile(path):
+        print(f"no plugin specs at {path}")
+        return 0
+    try:
+        specs = load_specs(path)
+    except Exception as e:  # noqa: BLE001
+        print(f"INVALID specs file {path}: {e}", file=sys.stderr)
+        return 1
+    for s in specs:
+        print(f"{s.name}\t{s.plugin_type}\t{s.run_mode}\t"
+              f"every {s.interval_seconds:.0f}s\t{len(s.steps)} step(s)")
+    return 0
+
+
+def cmd_release(args) -> int:
+    """Reference: cmd/gpud release subcommands (command.go:446-570)."""
+    from gpud_tpu_torch.release import distsign
+
+    sub = args.release_cmd
+    if sub == "gen-root-key":
+        priv, pub = distsign.write_keypair(args.dir, "root")
+        print(f"root key: {priv}\nroot pub: {pub}")
+    elif sub == "gen-signing-key":
+        priv, pub = distsign.write_keypair(args.dir, "signing")
+        print(f"signing key: {priv}\nsigning pub: {pub}")
+    elif sub == "sign-key":
+        out = distsign.sign_key(args.root_key, args.signing_pub)
+        print(f"key endorsement: {out}")
+    elif sub == "sign-package":
+        out = distsign.sign_package(args.signing_key, args.package)
+        print(f"package signature: {out}")
+    elif sub == "verify-package":
+        err = distsign.verify_package(
+            args.signing_pub, args.package,
+            sig_path=args.sig or "",
+            root_pub_path=args.root_pub or "",
+            key_sig_path=args.key_sig or "",
+        )
+        if err:
+            print(f"FAIL: {err}", file=sys.stderr)
+            return 1
+        print("OK: signature valid")
+    return 0
+
+
+def cmd_update(args) -> int:
+    """Reference: cmd/gpud update(+check) — set/inspect the target-version
+    file the watcher acts on, or (``--install``) run the built-in
+    download→verify→install pipeline synchronously (update.go:19-50)."""
+    from gpud_tpu_torch.update import read_target_version, write_target_version
+
+    cfg = _build_config(args)
+    path = cfg.target_version_file()
+    if args.check:
+        target = read_target_version(path)
+        print(f"running: {__version__}\ntarget:  {target or '(none)'}")
+        return 0
+    if not args.target_version:
+        print("error: --target-version required (or --check)", file=sys.stderr)
+        return 1
+    if args.install:
+        from gpud_tpu_torch.update_install import perform_update
+
+        err = perform_update(
+            args.target_version,
+            base_url=args.base_url,
+            install_dir=args.install_dir,
+            signing_pub=args.signing_pub,
+            root_pub=args.root_pub,
+        )
+        if err:
+            print(f"FAIL: {err}", file=sys.stderr)
+            return 1
+        print(f"installed {args.target_version}")
+        return 0
+    write_target_version(path, args.target_version)
+    print(f"target version set to {args.target_version}; "
+          "the running daemon restarts within 30s")
+    return 0
+
+
+def cmd_custom_plugins(args) -> int:
+    """Reference: cmd/gpud custom-plugins — validate a specs file."""
+    from gpud_tpu_torch.plugins.spec import load_specs
+
+    try:
+        specs = load_specs(args.file)
+    except Exception as e:  # noqa: BLE001 — any parse failure is "invalid"
+        print(f"INVALID: {e}", file=sys.stderr)
+        return 1
+    print(f"OK: {len(specs)} valid plugin spec(s)")
+    for s in specs:
+        print(f"  {s.name} ({s.plugin_type}, {s.run_mode})")
+    return 0
+
+
+def cmd_run_plugin_group(args) -> int:
+    """Reference: cmd/gpud run-plugin-group — run all plugins with a tag
+    once and print results."""
+    from gpud_tpu_torch.api.v1.types import HealthStateType
+    from gpud_tpu_torch.components.base import TpudInstance
+    from gpud_tpu_torch.plugins.component import build_components
+    from gpud_tpu_torch.plugins.spec import load_specs
+
+    specs = load_specs(args.file)
+    comps = build_components(TpudInstance(), specs)
+    if args.tag:
+        comps = [c for c in comps if args.tag in c.tags()]
+    bad = 0
+    for c in comps:
+        cr = c.check()
+        glyph = "✔" if cr.health_state_type() == HealthStateType.HEALTHY else "✘"
+        if cr.health_state_type() != HealthStateType.HEALTHY:
+            bad += 1
+        print(f"{glyph} {c.name()}: {cr.summary()}")
+    return 1 if bad else 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gpud_tpu_torch",
@@ -313,6 +457,55 @@ def build_parser() -> argparse.ArgumentParser:
     prm.add_argument("--json", action="store_true", dest="as_json",
                      help="machine-readable attempts + summary")
     prm.set_defaults(fn=cmd_remediation)
+
+    plp = sub.add_parser("list-plugins", help="list configured plugin specs")
+    _add_common_flags(plp)
+    plp.set_defaults(fn=cmd_list_plugins)
+
+    pmi = sub.add_parser("machine-info", help="print machine info JSON")
+    pmi.add_argument("--accelerator-type", default="")
+    pmi.set_defaults(fn=cmd_machine_info)
+
+    prl = sub.add_parser("release", help="release signing (ed25519)")
+    rsub = prl.add_subparsers(dest="release_cmd", required=True)
+    r1 = rsub.add_parser("gen-root-key")
+    r1.add_argument("--dir", default=".")
+    r2 = rsub.add_parser("gen-signing-key")
+    r2.add_argument("--dir", default=".")
+    r3 = rsub.add_parser("sign-key")
+    r3.add_argument("--root-key", required=True)
+    r3.add_argument("--signing-pub", required=True)
+    r4 = rsub.add_parser("sign-package")
+    r4.add_argument("--signing-key", required=True)
+    r4.add_argument("--package", required=True)
+    r5 = rsub.add_parser("verify-package")
+    r5.add_argument("--signing-pub", required=True)
+    r5.add_argument("--package", required=True)
+    r5.add_argument("--sig", default="")
+    r5.add_argument("--root-pub", default="")
+    r5.add_argument("--key-sig", default="")
+    prl.set_defaults(fn=cmd_release)
+
+    pup = sub.add_parser("update", help="set or check the target version")
+    _add_common_flags(pup)
+    pup.add_argument("--check", action="store_true")
+    pup.add_argument("--target-version", default="")
+    pup.add_argument("--install", action="store_true",
+                     help="download, verify, and install --target-version now")
+    pup.add_argument("--base-url", default="")
+    pup.add_argument("--install-dir", default="")
+    pup.add_argument("--signing-pub", default="")
+    pup.add_argument("--root-pub", default="")
+    pup.set_defaults(fn=cmd_update, audited=True)
+
+    pcp = sub.add_parser("custom-plugins", help="validate a plugin specs file")
+    pcp.add_argument("file")
+    pcp.set_defaults(fn=cmd_custom_plugins)
+
+    prg = sub.add_parser("run-plugin-group", help="run plugins with a tag once")
+    prg.add_argument("file")
+    prg.add_argument("--tag", default="")
+    prg.set_defaults(fn=cmd_run_plugin_group)
     return p
 
 

@@ -13,21 +13,39 @@ fabric sweep over the GPUs' NVLink ports, the wire codec, the circuit
 breaker and the durable outbox, and the consolidated retention and
 WAL-checkpoint jobs.
 
-The reference's server also builds an HTTP listener, the session transport
-that the outbox replays into, and the chaos, package and update planes;
-those are not ported yet, and the port's server will wrap this class.
-Until the session is, ``self.session`` stays ``None`` and the replay tick
-hands nothing over, as the reference's does with no session. Nothing here
-imports torch: the anomaly check scores with numpy unless the process
-already holds a CUDA context.
+Since the session transport was ported, it also builds what the
+reference's ``Server`` builds around its session: the custom plugins
+(:340-366), the package manager (:368-370), the update watcher (:372-379),
+the session state (:381-390); at ``start`` it re-applies the persisted
+config overrides (:788-792), opens the control-plane session when an
+endpoint and a token are known (:799-977, with the dispatcher, the
+credential pairing, the circuit breaker's peers and the outbox's replay on
+every connect) and watches the token FIFO (:1025-1193); ``stop`` closes
+the session under its lock (:723-738). The reference's HTTP listener and
+chaos manager are not ported yet; the port's server will wrap this class.
+Nothing here imports torch: the anomaly check scores with numpy unless the
+process already holds a CUDA context.
 """
 
 from __future__ import annotations
 
+import os
+import stat
+import threading
+import time
 from typing import Optional
 
-from gpud_tpu_torch import host as pkghost
+# The daemon's numpy scores one host's window (8 GPUs x 180 samples x 7
+# features); OpenBLAS's pool of a thread per core buys it nothing and costs
+# each thread's stack and buffer on every host (12.7 MB of VmRSS on the
+# H100 machine's 8 cores, ROADMAP C3). Set before numpy loads; a process
+# that chose its own count, or loaded numpy first, keeps what it has.
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+from gpud_tpu_torch import host as pkghost  # noqa: E402 — after the BLAS default
+from gpud_tpu_torch import metadata as md
 from gpud_tpu_torch import sdnotify
+from gpud_tpu_torch.api.v1.types import Event, EventType
 from gpud_tpu_torch.components.all import all_components
 from gpud_tpu_torch.components.base import FailureInjector, Registry, TpudInstance
 from gpud_tpu_torch.components.cpu import match_cpu_lockup
@@ -38,11 +56,13 @@ from gpud_tpu_torch.components.os_comp import match_kernel_panic
 from gpud_tpu_torch.config import Config, default_config
 from gpud_tpu_torch.eventstore import EventStore
 from gpud_tpu_torch.fabric import FabricPlane
+from gpud_tpu_torch.fault_injector import Injector
 from gpud_tpu_torch.gpu.instance import new_instance
 from gpud_tpu_torch.health_history import HealthLedger
 from gpud_tpu_torch.kmsg.syncer import SharedWatcher, Syncer
 from gpud_tpu_torch.kmsg.watcher import kmsg_path
 from gpud_tpu_torch.log import get_logger
+from gpud_tpu_torch.manager.packages import PackageManager
 from gpud_tpu_torch.metadata import Metadata
 from gpud_tpu_torch.metrics.registry import DEFAULT_REGISTRY
 from gpud_tpu_torch.metrics.store import MetricsStore, SelfMetricsRecorder
@@ -55,7 +75,8 @@ from gpud_tpu_torch.session import wire as session_wire
 from gpud_tpu_torch.session.outbox import CircuitBreaker, SessionOutbox
 from gpud_tpu_torch.sqlite import open_rw_ro
 from gpud_tpu_torch.storage import BatchWriter, checkpoint_wal
-from gpud_tpu_torch.tracing import current_correlation_id
+from gpud_tpu_torch.tracing import DEFAULT_TRACER, current_correlation_id
+from gpud_tpu_torch.update import VersionFileWatcher
 
 logger = get_logger(__name__)
 
@@ -173,7 +194,10 @@ class Daemon:
         )
         self.self_metrics = SelfMetricsRecorder(self.metrics_registry, self.db_rw)
 
+        self.tracer = DEFAULT_TRACER
         self.kmsg_path = kmsg_path(cfg.kmsg_path)
+        # the session's injectFault writes through this (server.py:203)
+        self.fault_injector = Injector(kmsg_path=self.kmsg_path)
         self.gpu_instance = new_instance(
             failure_injector=failure_injector,
             accelerator_type=cfg.accelerator_type_override,
@@ -197,7 +221,6 @@ class Daemon:
         # the durable outbox and the control-plane circuit breaker:
         # producers journal here; a replay job drains everything above the
         # manager-acked watermark into the session as batched frames
-        self.session = None  # the transport, not ported yet
         self.outbox: Optional[SessionOutbox] = None
         session_wire.configure(compress_min_bytes=cfg.session_wire_compress_min_bytes)
         self.session_circuit = CircuitBreaker(
@@ -261,11 +284,64 @@ class Daemon:
         # one kmsg reader feeding every kmsg-consuming component
         self.kmsg_watcher = SharedWatcher(path=self.kmsg_path, from_now=True)
         self._wire_kmsg_syncers()
+        self._load_plugins()
+
+        # the package manager and the auto-update watcher
+        self.package_manager = PackageManager(cfg.packages_dir())
+        self.update_watcher = (
+            VersionFileWatcher(cfg.target_version_file())
+            if cfg.enable_auto_update
+            else None
+        )
+
+        # the control-plane session: built at start once an endpoint and a
+        # token are known (_maybe_start_session)
+        self.session = None
+        self.dispatcher = None
+        self.last_gossip = None
+        self.last_replay_jitter_seconds = 0.0
+        self._outbox_replay_job = None
+        self._session_mu = threading.Lock()
+        # serializes credential-pair metadata writes (rotations vs the
+        # success-gated on_connected persist) WITHOUT touching
+        # _session_mu — on_connected runs on the session's keepalive
+        # thread, which session.stop() joins while _session_mu is held
+        self._cred_mu = threading.Lock()
+        self._closed = False
+        self._fifo_stop: Optional[threading.Event] = None
+        self._fifo_thread: Optional[threading.Thread] = None
+
         self.supported_names = {
             c.name() for c in self.registry.all() if c.is_supported()
         }
         self._retention_targets = []
         self._started = False
+
+    def _load_plugins(self) -> None:
+        """Custom plugins from the specs file (server.py:340-366): init
+        plugins run once and fail the boot when unhealthy; component
+        plugins join the registry, a name clash with a built-in skipped and
+        logged. A spec that does not validate is skipped, as is the whole
+        file on a host without the ``yaml`` package."""
+        self.plugin_specs = []
+        specs_file = self.config.resolved_plugin_specs_file()
+        if not os.path.isfile(specs_file):
+            return
+        from gpud_tpu_torch.plugins.component import build_components, run_init_plugins
+        from gpud_tpu_torch.plugins.spec import load_specs
+
+        try:
+            self.plugin_specs = load_specs(specs_file, on_invalid="skip")
+        except ImportError as e:
+            logger.error("skipping plugin specs file %s: %s", specs_file, e)
+            return
+        init_err = run_init_plugins(self.instance, self.plugin_specs)
+        if init_err:
+            raise RuntimeError(init_err)
+        for comp in build_components(self.instance, self.plugin_specs):
+            _, reg_err = self.registry.register(lambda _inst, c=comp: c)
+            if reg_err is not None:
+                logger.error("skipping plugin %r: %s", comp.name(), reg_err)
 
     def _wire_kmsg_syncers(self) -> None:
         for comp_name, match_fn in (
@@ -341,10 +417,450 @@ class Daemon:
 
     def _outbox_replay_tick(self) -> int:
         """Job "session-outbox-replay": one batch of unacked records into
-        the session; 0 while there is none, disconnected or caught up."""
+        the session; 0 while there is none, disconnected, auth-parked or
+        caught up."""
         if self.outbox is None:
             return 0
         return self.outbox.replay_once(self.session)
+
+    def _session_frame_drop_event(self, direction: str, detail: str) -> None:
+        """Warning event for a dropped session frame (the session rate-
+        limits the calls), so an overflow shows in the event timeline."""
+        self.event_store.bucket("session").insert(
+            Event(
+                component="session",
+                time=time.time(),
+                name="session_frame_dropped",
+                type=EventType.WARNING,
+                message=f"{direction} channel overflow: {detail}",
+            )
+        )
+
+    # -- config overrides and the control-plane session --------------------
+    def _reapply_config_overrides(self) -> None:
+        """Control-plane config overrides survive restarts (reference:
+        persistMetadataOverrides in cmd/gpud/run). Best-effort: a corrupt
+        row must never abort boot (systemd would crash-loop us)."""
+        try:
+            import json as _json
+
+            raw = self.metadata.get(md.KEY_CONFIG_OVERRIDES)
+            if not raw:
+                return
+            cfgs = _json.loads(raw)
+            if not isinstance(cfgs, dict):
+                logger.warning("ignoring malformed persisted overrides: %r", cfgs)
+                return
+            from gpud_tpu_torch.session.dispatch import Dispatcher
+
+            updated, _applied, errors = Dispatcher(self).apply_config_overrides(cfgs)
+            if updated:
+                logger.info("re-applied persisted config overrides: %s", updated)
+            if errors:
+                logger.warning("persisted override errors: %s", errors)
+        except Exception:  # noqa: BLE001
+            logger.exception("re-applying persisted overrides failed; continuing boot")
+
+    # -- session wiring ----------------------------------------------------
+    def _maybe_start_session(self) -> None:
+        """Create the control-plane session when an endpoint + token exist
+        (reference: server.updateToken → session.NewSession, server.go:590;
+        the reference package: server.py:799-977)."""
+        with self._session_mu:
+            if self._closed:
+                return
+            # credentials must stay PAIRED with the endpoint they were
+            # issued for. Rotations (login/FIFO/updateToken) persist the
+            # endpoint+token pair to metadata together, so:
+            #   1. a complete --endpoint/--token flag pair wins ONLY when
+            #      it points at a DIFFERENT control plane than the
+            #      enrollment — that's an operator re-point. Flags aimed
+            #      at the SAME endpoint (the systemd unit re-supplying
+            #      bootstrap args every restart) defer to the metadata
+            #      pair, whose token is the freshest credential for that
+            #      endpoint — otherwise every restart would resurrect the
+            #      revoked bootstrap token;
+            #   2. else a complete metadata pair wins as a unit;
+            #   3. else piecewise fallback.
+            # raw reads captured ONCE: they drive both the credential
+            # decision and the rotation-staleness snapshot below — a
+            # second read for the snapshot would open a window where a
+            # concurrent rotation lands between the two and the snapshot
+            # wrongly matches it
+            raw_md_endpoint = self.metadata.get(md.KEY_ENDPOINT)
+            md_token = self.metadata.get(md.KEY_TOKEN)
+            md_endpoint = md.normalize_endpoint(raw_md_endpoint)
+            cfg_endpoint = md.normalize_endpoint(self.config.endpoint)
+            if md_token and not md_endpoint and cfg_endpoint:
+                # migration: older rotation code persisted only KEY_TOKEN,
+                # so which endpoint that token belongs to is unrecorded.
+                # Assume the flag endpoint (the control plane the daemon
+                # was enrolled with) — otherwise the first restart after
+                # upgrade would resurrect the revoked bootstrap flag
+                # token. The guess is NOT persisted here: pairs are only
+                # recorded on a successful connect (on_connected), and if
+                # the guess is wrong auth fails and the flag-credential
+                # fallback below recovers.
+                md_endpoint = cfg_endpoint
+            if (
+                cfg_endpoint
+                and self.config.token
+                and (not (md_endpoint and md_token) or cfg_endpoint != md_endpoint)
+            ):
+                endpoint, token = cfg_endpoint, self.config.token
+                if md_endpoint and md_endpoint != cfg_endpoint:
+                    logger.warning(
+                        "boot flags re-point the daemon: enrolled %s -> %s",
+                        md_endpoint, cfg_endpoint,
+                    )
+            elif md_endpoint and md_token:
+                if self.config.token and self.config.token != md_token:
+                    # same-endpoint flag token loses to the rotated
+                    # credential; say so, or an operator pushing a fresh
+                    # token via the unit file has no trail to follow. (If
+                    # the rotated credential is the dead one, the auth
+                    # fallback below promotes the flag token.)
+                    logger.warning(
+                        "--token flag for %s deferred to the rotated "
+                        "metadata credential (auth-failure fallback will "
+                        "promote the flag token if the rotation is stale)",
+                        md_endpoint,
+                    )
+                if cfg_endpoint and cfg_endpoint != md_endpoint:
+                    logger.warning(
+                        "enrolled metadata endpoint %s overrides --endpoint "
+                        "%s (no --token given; supply both flags to "
+                        "re-point)", md_endpoint, cfg_endpoint,
+                    )
+                endpoint, token = md_endpoint, md_token
+            else:
+                endpoint = cfg_endpoint or md_endpoint
+                token = md_token or self.config.token
+            if not endpoint or not token:
+                return
+            from gpud_tpu_torch.session.dispatch import Dispatcher
+            from gpud_tpu_torch.session.session import Session
+
+            self.dispatcher = Dispatcher(self)
+            self.session = Session(
+                endpoint=endpoint,
+                machine_id=self.machine_id,
+                token=token,
+                machine_proof=self.metadata.get(md.KEY_MACHINE_PROOF),
+                dispatch_fn=self.dispatcher,
+            )
+            session = self.session
+            # pairs are persisted only once the control plane ACCEPTS the
+            # credential — a guessed or stale pair can then never become
+            # durable state that outranks fresh boot flags. The persist is
+            # skipped if a rotation changed metadata since this session
+            # was decided (the rotation is newer and owns the pair).
+            snapshot = (raw_md_endpoint, md_token)
+
+            def persist_on_connect() -> None:
+                nonlocal snapshot
+                with self._cred_mu:
+                    pair = (
+                        md.normalize_endpoint(session.endpoint),
+                        session.token,
+                    )
+                    cur = (
+                        self.metadata.get(md.KEY_ENDPOINT),
+                        self.metadata.get(md.KEY_TOKEN),
+                    )
+                    if cur == pair:
+                        snapshot = pair  # already recorded; reconnects no-op
+                        return
+                    if cur != snapshot:
+                        return  # superseded by a rotation; don't clobber
+                    self.metadata.set_credential_pair(*pair)
+                    # refresh: a credential promoted LATER in this
+                    # session's life (mid-stream revocation + flag
+                    # fallback) must still be persistable
+                    snapshot = pair
+
+            def on_connected() -> None:
+                persist_on_connect()
+                # reconnect: in-flight frames from the old connection may
+                # be lost and the manager's delta decoder is fresh — fall
+                # back to the durable watermark, keyframe-anchored
+                if self.outbox is not None:
+                    self.outbox.reset_delivery()
+                # drain the outbox backlog immediately instead of waiting
+                # out the replay interval — reconnect is exactly when the
+                # store-and-forward journal has work. EXCEPT straight
+                # after a circuit-breaker recovery: then every agent in
+                # the fleet is reconnecting at once (the manager was
+                # down), and a synchronized replay burst would DDoS it —
+                # stagger the poke by a random jitter instead
+                job = self._outbox_replay_job
+                if job is None:
+                    return
+                jitter_cap = float(self.config.outbox_replay_jitter_seconds)
+                age = self.session_circuit.recovery_age()
+                recovering = age is not None and age <= max(
+                    5.0, 2.0 * jitter_cap
+                )
+                if recovering and jitter_cap > 0:
+                    import random
+
+                    jitter = random.uniform(0.1 * jitter_cap, jitter_cap)
+                    self.last_replay_jitter_seconds = jitter
+                    t = threading.Timer(jitter, job.poke)
+                    t.daemon = True
+                    t.start()
+                else:
+                    self.last_replay_jitter_seconds = 0.0
+                    job.poke()
+
+            # HA manager tier (docs/session.md "Peer failover"): the
+            # breaker owns failover order — the endpoint we enrolled
+            # with first, then the configured standby peers (minus any
+            # duplicate spelling of the primary). Set before start();
+            # with no session_peers the list stays empty and the breaker
+            # behaves exactly as before
+            peer_specs = [
+                p.strip() for p in (self.config.session_peers or [])
+                if p and p.strip()
+            ]
+            if peer_specs:
+                def _spec_endpoint(spec: str) -> str:
+                    return md.normalize_endpoint(
+                        spec.split("=", 1)[-1].split("|", 1)[0]
+                    )
+
+                self.session_circuit.peers = [endpoint] + [
+                    p for p in peer_specs if _spec_endpoint(p) != endpoint
+                ]
+            session.circuit = self.session_circuit
+            session.on_frame_dropped = self._session_frame_drop_event
+            session.on_connected = on_connected
+            self.session.on_auth_failure = self._make_auth_failure_handler(
+                session
+            )
+            self.session.start()
+            logger.info("control-plane session started to %s", endpoint)
+
+    def persist_credential_pair(self, endpoint: str, token: str) -> None:
+        """Rotation writers (FIFO, updateToken) record the pair through
+        here so they serialize with the success-gated connect persist."""
+        with self._cred_mu:
+            self.metadata.set_credential_pair(endpoint, token)
+
+    def persist_token(self, token: str) -> None:
+        """Token-only rotation (no live session to name the endpoint) —
+        still serialized under _cred_mu so a dying session's late
+        persist_on_connect can't interleave and clobber the rotation."""
+        with self._cred_mu:
+            self.metadata.set(md.KEY_TOKEN, token)
+
+    def _make_auth_failure_handler(self, session):
+        """Persist auth failures so operators can distinguish "control
+        plane revoked us" from network flakiness across restarts; and if
+        the boot flags carry a DIFFERENT token for the endpoint the
+        session is talking to, promote it once — the metadata credential
+        just proved dead, and the flag pair is the operator's standing
+        instruction (recovery path for a stale rotation or a re-point
+        attempted while only a token-only migration pair existed)."""
+        def on_auth_failure(reason: str) -> None:
+            self.metadata.set(
+                md.KEY_LAST_AUTH_FAILURE, f"{int(time.time())}|{reason[:200]}"
+            )
+            cfg_endpoint = md.normalize_endpoint(self.config.endpoint)
+            if (
+                self.config.token
+                and self.config.token != session.token
+                and (not cfg_endpoint or cfg_endpoint == session.endpoint)
+                and not session.flag_token_tried
+            ):
+                session.flag_token_tried = True  # one shot: no ping-pong
+                logger.warning(
+                    "auth failed with the stored credential; retrying with "
+                    "the --token flag credential"
+                )
+                # un-parks the session's auth wait (it watches .token)
+                session.token = self.config.token
+
+        return on_auth_failure
+
+    def _start_token_fifo(self) -> None:
+        """FIFO so `tpud up`'s login can hand a fresh token to a running
+        daemon (reference: server.go:638-713 gpud.fifo + WriteToken
+        727-756; the reference package: server.py:1025-1193)."""
+        if self.config.db_in_memory:
+            return
+        fifo_path = self.config.fifo_file()
+        try:
+            if os.path.exists(fifo_path):
+                # a leftover regular file would make open() return instantly
+                # and the watch loop busy-spin — recreate it as a FIFO
+                if not stat.S_ISFIFO(os.stat(fifo_path).st_mode):
+                    logger.warning(
+                        "token fifo path %s is not a FIFO; recreating", fifo_path
+                    )
+                    os.remove(fifo_path)
+                    os.mkfifo(fifo_path)
+            else:
+                os.mkfifo(fifo_path)
+        except OSError as e:
+            logger.warning("token fifo unavailable: %s", e)
+            return
+
+        def watch():
+            import select as _select
+
+            def apply(token: str) -> None:
+                # persist the PAIR: the rotated token belongs to the
+                # endpoint the session is (about to be) talking to, and
+                # the pair must survive a process restart that re-supplies
+                # stale boot flags
+                with self._session_mu:
+                    active = (
+                        self.session.endpoint
+                        if self.session is not None
+                        else md.normalize_endpoint(self.config.endpoint)
+                        or md.normalize_endpoint(
+                            self.metadata.get(md.KEY_ENDPOINT)
+                        )
+                    )
+                if active:
+                    self.persist_credential_pair(active, token)
+                else:
+                    self.persist_token(token)
+                logger.info("received new token via fifo; (re)starting session")
+                with self._session_mu:
+                    if self.session is not None:
+                        self.session.stop()
+                        self.session = None
+                self._maybe_start_session()
+
+            # the watcher holds the FIFO open O_RDWR for the daemon's
+            # whole life: a reader always exists, so write_token never
+            # ENXIOs after boot AND — unlike an open/EOF/close loop — an
+            # ACKED write can never be discarded in the window where the
+            # last reader closes (Linux drops FIFO buffers at zero
+            # readers). A transient open failure (fd pressure) retries —
+            # one bad moment at boot must not disable rotation for the
+            # daemon's whole life.
+            fd = -1
+            while fd < 0:
+                try:
+                    fd = os.open(fifo_path, os.O_RDWR)
+                except OSError as e:
+                    logger.warning("token fifo unavailable: %s; retrying", e)
+                    if self._fifo_stop.wait(1.0):
+                        return
+            poller = _select.poll()  # no FD_SETSIZE limit, unlike select()
+            poller.register(fd, _select.POLLIN)
+            buf = b""
+            try:
+                while not self._fifo_stop.is_set():
+                    if buf and b"\n" not in buf:
+                        # a writer sent bytes with no newline (raw
+                        # `printf > fifo` rotation). The old EOF-framed
+                        # reader accepted those; emulate it: if the
+                        # writer goes quiet, the buffer IS the delivery.
+                        # (A write arriving inside the window doesn't
+                        # merge either — the read path below frames a
+                        # surviving raw partial before appending.)
+                        # 1s quiet window: a writer pausing mid-token
+                        # >250ms could get its token torn in two; real
+                        # tokens arrive in one atomic pipe write, so the
+                        # longer window only delays the raw-printf path.
+                        if not poller.poll(1000):
+                            if len(buf) >= 1024:
+                                # same bound as the pre-append framing
+                                # below: a kilobyte+ newline-less blob is
+                                # not a credential token — persisting it
+                                # would evict a valid stored credential
+                                logger.warning(
+                                    "discarding %d-byte newline-less fifo "
+                                    "delivery (exceeds token bound)",
+                                    len(buf),
+                                )
+                                buf = b""
+                                continue
+                            token = buf.decode("utf-8", "replace").strip()
+                            buf = b""
+                            if token:
+                                apply(token)
+                            continue
+                    try:
+                        chunk = os.read(fd, 4096)  # blocks until a write
+                    except OSError:
+                        if self._fifo_stop.wait(1.0):
+                            return
+                        continue
+                    if self._fifo_stop.is_set():
+                        return
+                    if buf and b"\n" not in buf:
+                        # the previous read left a newline-less raw
+                        # delivery (tokens fit one atomic pipe write, so
+                        # a small survivor is complete, not a fragment):
+                        # frame it BEFORE appending, or a tooling write
+                        # arriving in the quiet window would merge with
+                        # it. An over-bound survivor is garbage — discard
+                        # it here too, or it would merge with this chunk
+                        # and ride through the split below as one huge
+                        # "delivery" (bypassing the quiet-window bound).
+                        if len(buf) < 1024:
+                            token = buf.decode("utf-8", "replace").strip()
+                            if token:
+                                apply(token)
+                        else:
+                            logger.warning(
+                                "discarding %d-byte newline-less fifo "
+                                "delivery (exceeds token bound)", len(buf),
+                            )
+                        buf = b""
+                    buf += chunk
+                    if b"\n" not in buf:
+                        continue  # partial delivery; newline or quiet next
+                    *lines, buf = buf.split(b"\n")  # tail = pending partial
+                    # rapid successive write_token calls coalesce into ONE
+                    # read; each newline-delimited line is a separate
+                    # delivery and the LATEST rotation wins — joining them
+                    # would persist a corrupt multi-line token that then
+                    # rides an Authorization header. The same 1024-byte
+                    # token bound applies per line: a newline-terminated
+                    # blob must not become the credential either.
+                    deliveries = []
+                    for ln in lines:
+                        if len(ln) >= 1024:
+                            logger.warning(
+                                "discarding %d-byte fifo line (exceeds "
+                                "token bound)", len(ln),
+                            )
+                            continue
+                        d = ln.decode("utf-8", "replace").strip()
+                        if d:
+                            deliveries.append(d)
+                    if deliveries:
+                        apply(deliveries[-1])
+            finally:
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass
+
+        self._fifo_stop = threading.Event()
+        self._fifo_thread = threading.Thread(
+            target=watch, name="tpud-token-fifo", daemon=True
+        )
+        self._fifo_thread.start()
+
+    @staticmethod
+    def write_token(token: str, fifo_path: str) -> Optional[str]:
+        """Reference: server.WriteToken (server.go:727-756)."""
+        try:
+            fd = os.open(fifo_path, os.O_WRONLY | os.O_NONBLOCK)
+            try:
+                os.write(fd, (token + "\n").encode())
+            finally:
+                os.close(fd)
+            return None
+        except OSError as e:
+            return str(e)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -393,8 +909,9 @@ class Daemon:
                     initial_delay=interval,
                 )
         if self.outbox is not None:
+            # on_connected pokes this job for an immediate drain
             interval = float(self.config.outbox_replay_interval_seconds)
-            self.scheduler.add_job(
+            self._outbox_replay_job = self.scheduler.add_job(
                 "session-outbox-replay",
                 self._outbox_replay_tick,
                 interval=interval,
@@ -408,7 +925,13 @@ class Daemon:
             self.fabric.start(self.scheduler)
         self.metrics_syncer.start(self.scheduler)
         self.self_metrics.start(self.scheduler)
+        self.package_manager.start()
+        if self.update_watcher is not None:
+            self.update_watcher.start(self.scheduler)
         self.scheduler.start()
+        self._reapply_config_overrides()
+        self._maybe_start_session()
+        self._start_token_fifo()
         sdnotify.ready()
 
     def _purge_retention(self) -> None:
@@ -422,6 +945,21 @@ class Daemon:
         """The reference's shutdown order, then the DB handles: the writer
         commits last of all, since every closer above may emit final rows."""
         sdnotify.stopping()
+        with self._session_mu:
+            self._closed = True  # bars the fifo watcher from new sessions
+        if self._fifo_stop is not None:
+            self._fifo_stop.set()
+            # unblock the fifo reader's read
+            self.write_token("", self.config.fifo_file())
+            if self._fifo_thread is not None:
+                self._fifo_thread.join(timeout=3.0)
+        with self._session_mu:
+            if self.session is not None:
+                self.session.stop()
+                self.session = None
+        self.package_manager.close()
+        if self.update_watcher is not None:
+            self.update_watcher.close()
         self.metrics_syncer.close()
         self.self_metrics.close()
         self.kmsg_watcher.close()

@@ -27,7 +27,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from gpud_tpu_torch.components.base import FailureInjector
 from gpud_tpu_torch.gpu import nvml as nvml_mod
@@ -171,6 +171,11 @@ class GPUInstance:
     def telemetry(self) -> Dict[int, GPUTelemetry]:
         return {}
 
+    def board_identity(self, gpu_id: int) -> Tuple[str, int]:
+        """(serial number, minor number) of one GPU, for the machine
+        info; ("", -1) where the backend cannot say."""
+        return "", -1
+
     def nvlink_links(self) -> List[NVLinkSnapshot]:
         return []
 
@@ -262,6 +267,11 @@ class MockBackend(GPUInstance):
 
     def devices(self) -> Dict[int, GPU]:
         return dict(self._gpus)
+
+    def board_identity(self, gpu_id: int) -> Tuple[str, int]:
+        if gpu_id not in self._gpus:
+            return "", -1
+        return f"mock-serial-{self._worker_id}-{gpu_id}", gpu_id
 
     def telemetry_supported(self) -> bool:
         return True
@@ -428,6 +438,18 @@ class NVMLBackend(GPUInstance):
         with self._lock:
             self._handles()
             return {gid: GPU(**gpu.__dict__) for gid, gpu in self._gpus.items()}
+
+    def board_identity(self, gpu_id: int) -> Tuple[str, int]:
+        if gpu_id not in self._gpus or not self.gpu_lib_exists():
+            return "", -1
+        with self._lock:
+            try:
+                handle = self.nvml.handle(gpu_id)
+            except nvml_mod.NVMLError:
+                return "", -1
+            r = nvml_mod.DeviceReader(self.nvml, handle)
+            return (r.read("serial", self.nvml.serial, default=""),
+                    r.read("minor_number", self.nvml.minor_number, default=-1))
 
     def telemetry_supported(self) -> bool:
         return self.gpu_lib_exists()
@@ -652,6 +674,9 @@ class InjectedInstance(GPUInstance):
                 gpu = GPU(**{**gpu.__dict__, "requires_reset": True})
             out[gid] = gpu
         return out
+
+    def board_identity(self, gpu_id: int) -> Tuple[str, int]:
+        return self.inner.board_identity(gpu_id)
 
     def telemetry_supported(self) -> bool:
         return self.inner.telemetry_supported()

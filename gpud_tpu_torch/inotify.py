@@ -1,10 +1,10 @@
-"""Inotify wrapper (ctypes; Linux-only); the port of ``gpud_tpu/inotify.py``.
+"""Shared inotify wrapper (ctypes; Linux-only); the port of
+``gpud_tpu/inotify.py``.
 
-Event-driven wakeups for file tails (kmsg fixture mode) — no busy polling,
-near-zero change-to-wakeup latency. Absence (non-Linux, restricted
-sandbox) is fine: the kmsg watcher has a polling fallback. The reference's
-directory-informer part (``add_path``) waits for its one consumer, the
-package manager.
+Event-driven wakeups for file tails (kmsg fixture mode) and directory
+informers (package manager) — no busy polling, near-zero
+change-to-wakeup latency. Absence (non-Linux, restricted sandbox) is
+fine: every consumer has a polling fallback.
 """
 
 from __future__ import annotations
@@ -18,18 +18,24 @@ from typing import Optional
 
 class InotifyWatch:
     """Minimal inotify wrapper (ctypes; Linux-only) for event-driven file
-    tails — no busy polling, near-zero change-to-wakeup latency."""
+    tails and directory informers — no busy polling, near-zero
+    change-to-wakeup latency. Also consumed by the package manager's file
+    informer (gpud_tpu_torch/manager/packages.py)."""
 
     IN_MODIFY = 0x00000002
+    # directory-informer mask: create/modify/delete/move inside a dir
+    TREE_MASK = 0x00000002 | 0x00000100 | 0x00000200 | 0x00000040 | 0x00000080
 
-    def __init__(self, ifd: int) -> None:
+    def __init__(self, ifd: int, libc, mask: int) -> None:
         self.ifd = ifd
+        self._libc = libc
+        self._mask = mask
         self._closed = False
         self._poller = select.poll()
         self._poller.register(ifd, select.POLLIN)
 
     @classmethod
-    def create(cls, path: str) -> Optional["InotifyWatch"]:
+    def create(cls, path: str, mask: int = IN_MODIFY) -> Optional["InotifyWatch"]:
         try:
             import ctypes
 
@@ -40,20 +46,30 @@ class InotifyWatch:
             ifd = libc.inotify_init1(os.O_NONBLOCK | os.O_CLOEXEC)
             if ifd < 0:
                 return None
-            wd = libc.inotify_add_watch(ifd, path.encode(), cls.IN_MODIFY)
+            wd = libc.inotify_add_watch(ifd, path.encode(), mask)
             if wd < 0:
                 os.close(ifd)
                 return None
-            return cls(ifd)
+            return cls(ifd, libc, mask)
         except Exception:  # noqa: BLE001 — non-Linux / restricted sandbox
             return None
+
+    def add_path(self, path: str) -> bool:
+        """Watch an additional path on the same instance (informer trees)."""
+        if self._closed:
+            return False
+        try:
+            return self._libc.inotify_add_watch(self.ifd, path.encode(), self._mask) >= 0
+        except Exception:  # noqa: BLE001
+            return False
 
     def wait(self, timeout_ms: int) -> bool:
         """Block until the file is modified (or timeout); drains the event
         queue. Returns True when an event arrived.
 
         Threading contract: ``close()`` must be called from the thread
-        that waits (the kmsg tail does exactly that). The ``_closed`` guard below is a
+        that waits (both consumers — the kmsg tail and the package
+        informer — do exactly that). The ``_closed`` guard below is a
         misuse backstop, NOT cross-thread synchronization: a truly
         concurrent close-mid-wait cannot be made safe at this layer (the
         kernel may recycle the fd number between check and read). The

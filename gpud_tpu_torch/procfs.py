@@ -13,15 +13,21 @@ Linux:
 - memory: ``/proc/meminfo``, used = total - available (``free``'s columns);
 - partitions: the mount table's rows with a device and a file-system type
   that ``/proc/filesystems`` lists without ``nodev``;
-- usage: ``statvfs``, with the percent of the space open to users.
+- usage: ``statvfs``, with the percent of the space open to users;
+- network interfaces: their addresses from libc's ``getifaddrs`` (through
+  ctypes: the call psutil's C extension makes, so secondary IPv4 and every
+  IPv6 address come in its order), their MTU and link speed from
+  ``/sys/class/net/<nic>/{mtu,speed}`` (the ioctls' figures).
 
 Each reader takes its file's path, so tests can feed fixtures.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
-from typing import List, NamedTuple, Optional, Tuple
+import socket
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from gpud_tpu_torch.blockdev import _unescape_mount
 
@@ -171,3 +177,128 @@ def disk_usage(path: str) -> DiskUsage:
     used = total - st.f_bfree * st.f_frsize
     avail = st.f_bavail * st.f_frsize
     return DiskUsage(total=total, used=used, free=avail, percent=_percent(used, used + avail))
+
+
+# -- network interfaces ----------------------------------------------------------
+
+SYS_CLASS_NET = "/sys/class/net"
+AF_LINK = getattr(socket, "AF_PACKET", 17)
+
+
+class NicAddr(NamedTuple):
+    family: int
+    address: str
+
+
+class NicStats(NamedTuple):
+    mtu: int
+    speed: int  # Mb/s; 0 when the link does not say
+
+
+class _SockAddr(ctypes.Structure):
+    _fields_ = [("family", ctypes.c_ushort)]
+
+
+class _IfAddrs(ctypes.Structure):
+    pass
+
+
+_IfAddrs._fields_ = [
+    ("next", ctypes.POINTER(_IfAddrs)),
+    ("name", ctypes.c_char_p),
+    ("flags", ctypes.c_uint),
+    ("addr", ctypes.POINTER(_SockAddr)),
+    ("netmask", ctypes.POINTER(_SockAddr)),
+    ("ifu", ctypes.POINTER(_SockAddr)),
+    ("data", ctypes.c_void_p),
+]
+
+
+def _format_addr(sa) -> Optional[str]:
+    """A sockaddr's address as psutil prints it: dotted IPv4; IPv6 with the
+    link-local scope's interface name after ``%`` (``getnameinfo``'s
+    numeric form); a MAC as lower-case hex pairs. None for other families
+    and for a link address of no bytes. Reads only the bytes of the
+    family's own struct."""
+    base = ctypes.addressof(sa.contents)
+    family = sa.contents.family
+    if family == socket.AF_INET:
+        return socket.inet_ntop(socket.AF_INET, ctypes.string_at(base + 4, 4))
+    if family == socket.AF_INET6:
+        raw = ctypes.string_at(base + 8, 16)
+        text = socket.inet_ntop(socket.AF_INET6, raw)
+        scope = int.from_bytes(ctypes.string_at(base + 24, 4), "little")
+        link_local = raw[0] == 0xFE and raw[1] & 0xC0 == 0x80
+        mc_link_local = raw[0] == 0xFF and raw[1] & 0x0F == 0x02
+        if scope and (link_local or mc_link_local):
+            try:
+                text += "%" + socket.if_indextoname(scope)
+            except OSError:
+                text += f"%{scope}"
+        return text
+    if family == AF_LINK:
+        halen = ctypes.string_at(base + 11, 1)[0]
+        if halen == 0:
+            return None
+        return ":".join(f"{b:02x}" for b in ctypes.string_at(base + 12, halen))
+    return None
+
+
+def net_if_addrs() -> Dict[str, List[NicAddr]]:
+    """Each interface's addresses (psutil's ``net_if_addrs``): IPv4, then
+    IPv6, then the link address, each family in ``getifaddrs`` order; the
+    interfaces in the order of their first address so sorted. Raises
+    OSError when ``getifaddrs`` fails."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    head = ctypes.POINTER(_IfAddrs)()
+    if libc.getifaddrs(ctypes.byref(head)) != 0:
+        err = ctypes.get_errno()
+        raise OSError(err, os.strerror(err))
+    raw: List[Tuple[str, int, str]] = []
+    try:
+        node = head
+        while node:
+            ifa = node.contents
+            if ifa.addr:
+                addr = _format_addr(ifa.addr)
+                if addr is not None:
+                    raw.append((ifa.name.decode(errors="replace"),
+                                ifa.addr.contents.family, addr))
+            node = ifa.next
+    finally:
+        libc.freeifaddrs(head)
+    raw.sort(key=lambda r: r[1])  # by family, stable: psutil's order
+    out: Dict[str, List[NicAddr]] = {}
+    for name, family, addr in raw:
+        if family == AF_LINK:
+            while addr.count(":") < 5:
+                addr += ":00"
+        out.setdefault(name, []).append(NicAddr(family, addr))
+    return out
+
+
+def _sys_int(path: str) -> Optional[int]:
+    try:
+        with open(path, "r", encoding="ascii") as f:
+            return int(f.read().strip())
+    except (OSError, ValueError):
+        return None
+
+
+def net_if_stats(sys_class_net: str = SYS_CLASS_NET) -> Dict[str, NicStats]:
+    """MTU and speed of each interface the kernel lists (psutil's
+    ``net_if_stats``, which asks the same figures by ioctl): a speed the
+    driver does not report, or reports as unknown (-1), reads 0."""
+    out: Dict[str, NicStats] = {}
+    try:
+        names = sorted(os.listdir(sys_class_net))
+    except OSError:
+        return out
+    for name in names:
+        base = os.path.join(sys_class_net, name)
+        mtu = _sys_int(os.path.join(base, "mtu"))
+        if mtu is None:
+            continue
+        speed = _sys_int(os.path.join(base, "speed"))
+        out[name] = NicStats(mtu=mtu, speed=speed if speed and speed > 0 else 0)
+    return out

@@ -1,8 +1,8 @@
 """The daemon's core and the planes it wires in, composed as ``chip_smoke.py``'s
 daemon phase composes them (gpud_tpu_torch/daemon.py) on the mock GPUs, against
 the reference's own ``Server`` on its TPU mock, built and started by its own
-code with no listener bound and the planes the port lacks (chaos, update)
-switched off.
+code with no listener bound and the plane the port lacks (chaos) switched
+off.
 
 Both run the checks as scheduler jobs over one state DB and one shared
 writer; the same fault (Xid 79 on the port, its analog ``tpu_chip_lost`` on
@@ -18,6 +18,7 @@ their ticks itself (``tick_once``, ``sweep_once``, ``calibrate_now``,
 Waits are events with a bound; nothing sleeps, and the outside probes are
 stubbed."""
 
+import os
 import threading
 
 import pytest
@@ -40,6 +41,7 @@ from gpud_tpu_torch.fault_injector import Injector, Request
 from torch_daemon_parity import DAEMON_TABLES, schema
 from torch_fakes import no_binary
 from torch_parity import COMPONENTS, nouns, stub_host_probes
+from torch_ref_tests import port_tests
 from torch_xid_corpus import ORGANIC
 
 WAIT = 30.0
@@ -55,8 +57,8 @@ PLANE_JOBS = {"session-outbox-replay", "predict-scan", "predict-calibrate", "fab
 SWEEPS = 3
 
 
-# the planes of the reference's server that the port has not ported yet
-UNPORTED_PLANES = dict(chaos_enabled=False, enable_auto_update=False)
+# the plane of the reference's server that the port has not ported yet
+UNPORTED_PLANES = dict(chaos_enabled=False)
 
 
 class RefDaemon(RefServer):
@@ -398,3 +400,86 @@ def test_the_daemon_registers_the_reference_s_jobs(tmp_path):
                                         "session-outbox", "fabric-matrix"]
     assert got["port"]["predictor_attached"] == (True, True)
 
+
+
+# -- the session and its callers (A8b) --------------------------------------------------
+
+# The reference's own composition tests, run on the port's ``Daemon``: the
+# token FIFO, the credential pairing of server.py:799-977 (flags against the
+# enrolled pair, the migration guess, the auth-failure fallback, rotations
+# that survive restarts) and the boot-time composition. The listener's case
+# (``start`` twice keeps the same port and serve thread) waits for A9.
+globals().update(port_tests(
+    "test_server_composition.py",
+    replace=[("from gpud_tpu_torch.server.server import Server",
+              "from gpud_tpu_torch.daemon import Daemon as Server")],
+    exclude=["test_double_start_is_a_noop"]))
+
+
+def wired(name, tmp_path, plane):
+    """What the daemon built around its session, once connected."""
+    from gpud_tpu import metadata as ref_md
+    from gpud_tpu_torch import metadata as port_md
+
+    md = port_md if name == "port" else ref_md
+    w = tmp_path / name
+    w.mkdir()
+    (w / "kmsg").touch()
+    specs = w / "plugins.yaml"
+    specs.write_text("- name: probe\n  steps:\n    - {name: s, script: echo ok}\n")
+    common = dict(data_dir=str(w / "data"), kmsg_path=str(w / "kmsg"), **FAST, **PLANES_BY_HAND,
+                  endpoint=plane.endpoint, token="join-T", machine_id=f"{name}-box",
+                  session_peers=["m-b=http://127.0.0.1:1"], plugin_specs_file=str(specs))
+    if name == "port":
+        d = Daemon(port_config.default_config(**common))
+    else:
+        d = RefDaemon(ref_config.default_config(tls=False, port=0, **common, **UNPORTED_PLANES))
+        d._maybe_start_session = lambda: RefServer._maybe_start_session(d)
+    try:
+        d.start()
+        s = d.session
+        deadline = threading.Event()
+        for _ in range(int(WAIT / 0.01)):
+            if s.connected and d.metadata.get(md.KEY_TOKEN) == "join-T":
+                break
+            deadline.wait(0.01)
+        jobs = sorted(noun(j) for j in d.scheduler.job_names())
+        return {
+            "connected": s.connected,
+            "session": (s.machine_id.split("-")[1], s.token, s.endpoint == plane.endpoint),
+            "hooks": (s.on_connected is not None, s.on_auth_failure is not None,
+                      s.on_frame_dropped is not None, s.circuit is d.session_circuit),
+            "peers": [p == plane.endpoint or p for p in d.session_circuit.peers],
+            "dispatcher": type(d.dispatcher).__name__,
+            "dispatcher_serves": s.dispatch_fn is d.dispatcher,
+            "pair": (d.metadata.get(md.KEY_ENDPOINT) == plane.endpoint,
+                     d.metadata.get(md.KEY_TOKEN)),
+            "jobs": jobs,
+            "update_watcher": d.update_watcher is not None,
+            "packages_dir": os.path.basename(d.package_manager.packages_dir),
+            "replay_job": d._outbox_replay_job is not None,
+            "plugins": ([sp.name for sp in d.plugin_specs], d.registry.get("probe") is not None),
+        }
+    finally:
+        d.stop()
+
+
+def test_the_daemon_wires_its_session_as_the_reference_s_server(tmp_path):
+    """With an endpoint and a token, the port's ``Daemon`` builds the
+    dispatcher, the session with its hooks, the breaker's peers, the
+    package manager and the update watcher as the reference's ``Server``
+    does, registers the same jobs and persists the accepted pair."""
+    from torch_loopback_plane import LoopbackPlane
+
+    got = {}
+    for name in ("ref", "port"):
+        plane = LoopbackPlane().start()
+        try:
+            got[name] = wired(name, tmp_path, plane)
+        finally:
+            plane.stop()
+    assert got["port"] == got["ref"]
+    assert got["port"]["connected"] and got["port"]["pair"] == (True, "join-T")
+    assert got["port"]["peers"] == [True, "m-b=http://127.0.0.1:1"]
+    assert got["port"]["plugins"] == (["probe"], True)
+    assert "update-watcher" in got["port"]["jobs"]

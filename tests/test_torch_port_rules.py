@@ -99,6 +99,21 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.session.wire",
     "gpud_tpu_torch.session.session",
     "gpud_tpu_torch.session.outbox",
+    # the session transport and its callers
+    "gpud_tpu_torch.session.dispatch",
+    "gpud_tpu_torch.session.v2",
+    "gpud_tpu_torch.session.v2.typed",
+    "gpud_tpu_torch.session.v2.client",
+    "gpud_tpu_torch.http_client",
+    "gpud_tpu_torch.machine_info",
+    "gpud_tpu_torch.update",
+    "gpud_tpu_torch.update_install",
+    "gpud_tpu_torch.release.distsign",
+    "gpud_tpu_torch.manager.packages",
+    "gpud_tpu_torch.plugins.spec",
+    "gpud_tpu_torch.plugins.component",
+    "gpud_tpu_torch.kapmtls",
+    "gpud_tpu_torch.login",
 ])
 def test_the_daemon_path_loads_neither_torch_nor_jax(module):
     # the daemon's modules keep torch (the CUDA runtime) off its import path
@@ -128,6 +143,108 @@ def test_the_planes_import_neither_torch_nor_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_modules(tree)
            if m.split(".")[0] in FORBIDDEN + ("torch", "triton")]
     assert not bad, f"{path} imports {bad}"
+
+
+SESSION_FILES = [f"gpud_tpu_torch/{m}.py" for m in (
+    "session/session", "session/dispatch", "session/v2/__init__", "session/v2/typed",
+    "session/v2/client", "http_client", "machine_info", "update", "update_install",
+    "release/__init__", "release/distsign", "manager/__init__", "manager/packages",
+    "plugins/__init__", "plugins/spec", "plugins/component", "kapmtls", "login", "daemon",
+    "procfs", "inotify", "cli")]
+# packages a host may lack: never needed by the port
+NOT_NEEDED = ("requests", "psutil", "aiohttp")
+# packages the port loads only where the function that needs them runs
+LAZY = ("grpc", "google.protobuf", "cryptography", "yaml")
+
+
+def _module_level_imports(tree):
+    """Imports the module runs when it is imported: those outside every
+    function (an ``if TYPE_CHECKING:`` block runs none)."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.If) and getattr(node.test, "id", "") == "TYPE_CHECKING":
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module
+            yield from walk(ast.iter_child_nodes(node))
+    return list(walk(tree.body))
+
+
+@pytest.mark.parametrize("path", SESSION_FILES)
+def test_the_session_slice_needs_no_extra_package_at_import(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    anywhere = [m for m in _imported_modules(tree)
+                if m.split(".")[0] in FORBIDDEN + ("torch", "triton") + NOT_NEEDED]
+    assert not anywhere, f"{path} imports {anywhere}"
+    top = [m for m in _module_level_imports(tree)
+           if any(m == p or m.startswith(p + ".") for p in LAZY)]
+    assert not top, f"{path} imports {top} at module level"
+
+
+def test_only_the_generated_messages_import_protobuf_at_module_level():
+    # session_pb2.py is protoc's output, copied: it is the protobuf binding,
+    # loaded only by the v2 functions that need it
+    for path in sorted((REPO / "gpud_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [m for m in _module_level_imports(tree)
+               if any(m == p or m.startswith(p + ".") for p in LAZY)]
+        if path.name == "session_pb2.py":
+            assert all(m.startswith("google.protobuf") for m in top)
+        else:
+            assert not top, f"{path} imports {top} at module level"
+
+
+@pytest.mark.parametrize("module", ["gpud_tpu_torch.daemon", "gpud_tpu_torch.session.dispatch",
+                                    "gpud_tpu_torch.cli"])
+def test_the_daemon_loads_no_session_package_beyond_the_standard_library(module):
+    # compared before and after the import: a site hook may preload a
+    # namespace package (``google``) into every interpreter
+    code = textwrap.dedent(f"""
+        import json, sys
+        before = set(sys.modules)
+        import {module}
+        from gpud_tpu_torch.config import default_config
+        print(json.dumps(sorted(m for m in set(sys.modules) - before if any(
+            m == p or m.startswith(p + ".") for p in
+            {list(LAZY + NOT_NEEDED + ("http.client", "ssl", "urllib.request"))!r}))))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_a_daemon_without_a_session_loads_no_session_package(tmp_path):
+    # built and started with no endpoint: no session, so neither the
+    # transport (http.client, ssl) nor grpc, protobuf, yaml or cryptography
+    code = textwrap.dedent(f"""
+        import json, os, sys
+        os.environ["TPUD_GPU_MOCK_ALL_SUCCESS"] = "1"
+        sys.path.insert(0, "tests")
+        from torch_fakes import stub_port_probes
+        stub_port_probes()
+        before = set(sys.modules)
+        from gpud_tpu_torch.config import default_config
+        from gpud_tpu_torch.daemon import Daemon
+        w = {str(tmp_path)!r}
+        open(w + "/kmsg", "w").close()
+        d = Daemon(default_config(data_dir=w, kmsg_path=w + "/kmsg", endpoint="", token=""))
+        d.start()
+        d.scheduler.wait_first_runs(60)
+        loaded = sorted(m for m in set(sys.modules) - before if any(
+            m == p or m.startswith(p + ".") for p in
+            {list(LAZY + NOT_NEEDED + ("http.client", "ssl", "urllib.request"))!r}))
+        d.stop()
+        print(json.dumps([d.session is None, loaded]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.splitlines()[-1]) == [True, []]
 
 
 def test_the_wire_frames_json_without_msgpack():

@@ -29,6 +29,8 @@ class FakeGPU:
     name: str = "NVIDIA H100 80GB HBM3"
     uuid: str = "GPU-00000000-1111-2222-3333-444444444444"
     bus_id: str = "00000000:19:00.0"
+    serial: str = "1654922012345"
+    minor: int = 0
     temperature_c: int = 36
     memory_temperature: Tuple[int, object] = (N.NVML_VALUE_TYPE_UNSIGNED_INT, 43)
     power_mw: int = 71_234
@@ -134,6 +136,15 @@ class FakeNVML:
 
     def _nvmlDeviceGetUUID(self, handle, buf, size):
         return self._string("nvmlDeviceGetUUID", handle, buf, "uuid")
+
+    def _nvmlDeviceGetSerial(self, handle, buf, size):
+        return self._string("nvmlDeviceGetSerial", handle, buf, "serial")
+
+    def _nvmlDeviceGetMinorNumber(self, handle, p):
+        gpu, rc = self._gpu(handle, "nvmlDeviceGetMinorNumber")
+        if rc == N.NVML_SUCCESS:
+            p.contents.value = gpu.minor
+        return rc
 
     def _nvmlDeviceGetName(self, handle, buf, size):
         return self._string("nvmlDeviceGetName", handle, buf, "name")
