@@ -138,8 +138,30 @@ Phases, each printing its own lines:
              by the plane, installed into a temporary root, and a tampered
              copy refused; printed as the ``{"session": ...}`` line.
 
+12. server - (after the session phase) the daemon with its local API:
+             ``python -m gpud_tpu_torch run`` on NVML as a child process, with
+             TLS on, on a free port of 127.0.0.1, a kmsg file in its data
+             directory, the planes on and network-latency off (it dials
+             public addresses). Readiness (spawn to the ``listening on``
+             line, to the first 200 of /healthz); every GET route of the
+             table 200 with a body, 20 times each, through the port's SDK
+             over HTTPS (/v1/chaos/campaigns 400 as the reference's with
+             chaos disabled), /openapi.json equal to the route table, the
+             other methods routed; /v1/components the registered checks,
+             /machine-info's GPUs as nvidia-smi names them, /metrics parsed
+             with the NVML gauges and tpud_http_*; ``inject-fault`` with Xid
+             79 into the child's kmsg file, the check Unhealthy with the
+             reference's reason, ``status --json`` exit 1 with it; 20 s idle;
+             the dry-run reboot_system row (no executor call); ``set-healthy``
+             to Healthy; SIGTERM (exit 0), integrity_check, a second child
+             over the same data directory (no new transition, the events
+             kept). Host ms [p50, max] per route, CPU s per s idle, threads,
+             VmRSS (within PLANES_VMRSS_MB of the planes-on daemon child's)
+             and dirtied pages (the budget); printed as the ``{"server": ...}``
+             line.
+
 The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}``,
-``{"session": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
+``{"session": ...}``, ``{"server": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -163,6 +185,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -3100,6 +3123,376 @@ def phase_session(workdir: Path, smi_line: str, planes_on_peak_mb: float) -> dic
     return rec
 
 
+# -- 12. server --------------------------------------------------------------------
+
+SERVER_REPS = 20         # requests per GET route, for p50 and max
+SERVER_IDLE_S = 20.0     # the idle window of CPU seconds per second
+SERVER_STOP_S = 15.0     # SIGTERM to exit
+SERVER_WAIT_S = 60.0     # each wait of the phase
+XID_79 = "gpu_fallen_off_bus"
+# a GET route's query where it needs one to answer 200
+SERVER_QUERIES = {"/v1/components/trigger-check": {"componentName": ERR_KMSG},
+                  "/v1/components/trigger-tag": {"tagName": "kmsg"}}
+CHAOS_DISABLED = {"error": "chaos is disabled (chaos_enabled)"}
+NVML_GAUGES = ("tpud_gpu_temperature_celsius", "tpud_gpu_power_watts", "tpud_gpu_memory_used_bytes")
+_PROM_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")
+
+
+def prometheus_families(text: str) -> dict:
+    """The exposition parsed as a scraper would: every line a HELP, a TYPE
+    of a known kind or a sample with a float value; returns the sample
+    count by metric name."""
+    out: dict = {}
+    for row in text.splitlines():
+        if not row or row.startswith("# HELP "):
+            continue
+        if row.startswith("# TYPE "):
+            if row.split(" ")[3] not in ("gauge", "counter", "histogram", "summary", "untyped"):
+                raise AssertionError(f"/metrics: bad TYPE line {row!r}")
+            continue
+        m = _PROM_SAMPLE.match(row)
+        if m is None:
+            raise AssertionError(f"/metrics: unparseable line {row!r}")
+        float(m.group(3))
+        out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
+
+
+class RunChild:
+    """``python -m gpud_tpu_torch run`` on NVML as a child process, its
+    VmRSS sampled every 0.5 s from /proc until it exits."""
+
+    def __init__(self, w: Path, port: int, lib: Path) -> None:
+        env = {k: v for k, v in os.environ.items() if k not in (
+            gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH, "TPUD_ENDPOINT",
+            "TPUD_TOKEN")}
+        env.update(TPUD_LISTEN_HOST="127.0.0.1", TPUD_NATIVE_LIB=str(lib),
+                   TPUD_KMSG_FILE_PATH=str(w / "kmsg"))
+        self.t0 = time.perf_counter()
+        self.err = open(w / f"run_{port}.log", "wb")
+        # network-latency dials public addresses: off on a host without egress
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "gpud_tpu_torch", "run", "--data-dir", str(w),
+             "--kmsg-path", str(w / "kmsg"), "--port", str(port),
+             "--disable-components", "network-latency"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=self.err, text=True)
+        self.lines, self.rss = [], []
+        self._stop = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+        threading.Thread(target=self._sample, daemon=True).start()
+
+    def _read(self) -> None:
+        for row in self.proc.stdout:
+            self.lines.append((time.perf_counter() - self.t0, row.rstrip("\n")))
+
+    def _sample(self) -> None:
+        statm = Path(f"/proc/{self.proc.pid}/statm")
+        while not self._stop.wait(0.5):
+            try:
+                self.rss.append(int(statm.read_text().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20)
+            except (OSError, ValueError, IndexError):
+                return
+
+    def listening(self) -> float:
+        """Seconds from spawn to the ``listening on`` line."""
+        t0 = time.perf_counter()
+        while not any("listening on" in r for _, r in self.lines):
+            if self.proc.poll() is not None or time.perf_counter() - t0 > SERVER_WAIT_S:
+                self.kill()
+                raise AssertionError(f"run child: no 'listening on' line (rc "
+                                     f"{self.proc.returncode}): {self.log()}")
+            time.sleep(0.01)
+        return next(t for t, r in self.lines if "listening on" in r)
+
+    def cpu_s(self) -> float:
+        fields = Path(f"/proc/{self.proc.pid}/stat").read_text().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+    def memory(self, since: int = 0) -> dict:
+        """VmRSS's sampled peak (from sample ``since`` on), the pages the
+        child dirtied (Private_Dirty + Shared_Dirty) and its threads."""
+        dirty = sum(int(r.split()[1]) for r in
+                    Path(f"/proc/{self.proc.pid}/smaps").read_text().splitlines()
+                    if r.startswith(("Private_Dirty:", "Shared_Dirty:"))) / 1024.0
+        return {"vmrss_peak_sampled_mb": max(self.rss[since:]),
+                "vmrss_peak_from_spawn_mb": max(self.rss), "dirty_mb": dirty,
+                "threads": len(os.listdir(f"/proc/{self.proc.pid}/task"))}
+
+    def terminate(self) -> tuple:
+        """SIGTERM; (exit code, seconds to exit)."""
+        t0 = time.perf_counter()
+        self.proc.terminate()
+        try:
+            rc = self.proc.wait(timeout=SERVER_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"run child still up {SERVER_STOP_S} s after SIGTERM")
+        self._stop.set()
+        self.err.close()
+        return rc, time.perf_counter() - t0
+
+    def kill(self) -> None:
+        self._stop.set()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=SERVER_STOP_S)
+
+    def log(self) -> str:
+        self.err.flush()
+        return Path(self.err.name).read_text(errors="replace")[-4000:]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def server_until(cond, what: str) -> float:
+    t0 = time.perf_counter()
+    while True:
+        got = cond()
+        if got:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > SERVER_WAIT_S:
+            raise AssertionError(f"server: timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def server_cli(*argv: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != gpu_instance.ENV_MOCK_ALL_SUCCESS}
+    return subprocess.run([sys.executable, "-m", "gpud_tpu_torch", *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def err_state(client) -> dict:
+    return client.get_health_states(components=[ERR_KMSG])[0].states[0]
+
+
+def phase_server(workdir: Path, smi_line: str, planes_on_peak_mb: float, lib: Path) -> dict:
+    """The daemon with its local API on the card's machine:
+    ``python -m gpud_tpu_torch run`` on NVML with TLS, on 127.0.0.1, a kmsg
+    file in its data directory and the planes on; every GET route through
+    the port's SDK over HTTPS, the Xid 79 fault through ``inject-fault``,
+    ``status`` and ``set-healthy``, SIGTERM and a restart over the same
+    data directory, and the child's host cost."""
+    from gpud_tpu_torch.client.v1 import Client, ClientError
+    from gpud_tpu_torch.server.app import build_routes
+
+    t_phase = time.perf_counter()
+    w = workdir / "server"
+    w.mkdir()
+    (w / "kmsg").touch()
+    port = free_port()
+    child = RunChild(w, port, lib)
+    rec: dict = {"card": smi_line, "port": port}
+    try:
+        rec["ready_listening_s"] = child.listening()
+        base = next(r for _, r in child.lines if "listening on" in r).split("listening on ")[1]
+        if base != f"https://localhost:{port}":
+            raise AssertionError(f"run child listens on {base}")
+        client = Client(f"https://127.0.0.1:{port}", timeout=30)
+
+        def healthz():
+            try:
+                return client.healthz()["status"] == "ok"
+            except OSError:
+                return False
+
+        server_until(healthz, "/healthz")
+        rec["ready_healthz_s"] = time.perf_counter() - child.t0
+        ready = len(child.rss)  # VmRSS is gated from here on
+        server_until(lambda: err_state(client).health == HealthStateType.HEALTHY,
+                     f"{ERR_KMSG}'s first check")
+        line("server", f"run child pid {child.proc.pid}: 'listening on {base}' after "
+                       f"{rec['ready_listening_s']:.3f} s, /healthz 200 after "
+                       f"{rec['ready_healthz_s']:.3f} s")
+
+        # every GET route of the table, SERVER_REPS times, over HTTPS
+        table = build_routes(types.SimpleNamespace(config=types.SimpleNamespace(pprof=False)))
+        doc = client._req("GET", "/openapi.json")
+        documented = sorted((p, m.upper()) for p, ms in doc["paths"].items() for m in ms)
+        served = sorted((r.path, r.method) for r in table if r.path != "/openapi.json")
+        if documented != served:
+            raise AssertionError(f"/openapi.json {documented} != the route table {served}")
+        answers, ms = {}, {}
+        for path in sorted({r.path for r in table if r.method == "GET"}):
+            if path == "/v1/chaos/campaigns":
+                continue
+            took = []
+            for _ in range(SERVER_REPS):
+                t0 = time.perf_counter()
+                body = client._req("GET", path, params=SERVER_QUERIES.get(path))
+                took.append((time.perf_counter() - t0) * 1e3)
+            if body in ("", None):
+                raise AssertionError(f"GET {path}: an empty body")
+            answers[path], ms[path] = body, [statistics.median(took), max(took)]
+        try:
+            client._req("GET", "/v1/chaos/campaigns")
+            raise AssertionError("/v1/chaos/campaigns answered 200 with chaos not ported")
+        except ClientError as e:
+            if (e.status, json.loads(e.body)) != (400, CHAOS_DISABLED):
+                raise
+        # the other methods: the router serves each (the handler may refuse
+        # what the empty request names)
+        for path, method in served:
+            if method == "GET":
+                continue
+            try:
+                client._req(method, path, body={})
+            except ClientError as e:
+                if e.status == 405 or e.body == "404: Not Found":
+                    raise AssertionError(f"{method} {path}: the router answered {e.status}")
+        rec["route_host_ms_p50_max"] = ms
+        line("server", f"{len(ms)} GET routes 200 over HTTPS, {SERVER_REPS} each; "
+                       f"/v1/chaos/campaigns 400 as with chaos disabled; /openapi.json = the "
+                       f"table's {len(served)} routes; host ms [p50, max] {json.dumps(ms)}")
+
+        components = answers["/v1/components"]
+        scheduled = [s["component"] for s in answers["/v1/states"]]
+        expected = sorted(c.NAME for c in all_components() if c.NAME != "network-latency")
+        if sorted(components) != expected or not set(scheduled) <= set(components) or \
+                ERR_KMSG not in scheduled:
+            raise AssertionError(f"/v1/components {components}, /v1/states {scheduled}")
+        smi_rows = [[c.strip() for c in r.split(",")] for r in
+                    smi("--query-gpu=name,uuid", "--format=csv,noheader").splitlines() if r.strip()]
+        gi = answers["/machine-info"]["gpu_info"]
+        if [[gi["product"], g["uuid"]] for g in gi["gpus"]] != smi_rows:
+            raise AssertionError(f"/machine-info gpu_info {gi} != nvidia-smi {smi_rows}")
+        fams = prometheus_families(answers["/metrics"])
+        missing = [n for n in NVML_GAUGES + ("tpud_http_requests_total",
+                                             "tpud_http_request_duration_seconds_count")
+                   if not fams.get(n)]
+        if missing:
+            raise AssertionError(f"/metrics lacks {missing}")
+        rec["scheduled_checks"] = len(scheduled)
+        rec["metric_families"] = len(fams)
+        line("server", f"/v1/components: the {len(components)} checks registered, "
+                       f"{len(scheduled)} scheduled; /machine-info names {smi_rows} as nvidia-smi "
+                       f"does; /metrics parses ({len(fams)} families) with the NVML gauges and "
+                       f"tpud_http_*")
+
+        # the fault through the surfaces
+        r = server_cli("inject-fault", "--kmsg-path", str(w / "kmsg"), "--name", XID_79,
+                       "--gpu-id", "0", "--data-dir", str(w))
+        if r.returncode != 0 or XID_79 not in (w / "kmsg").read_text():
+            raise AssertionError(f"inject-fault: rc {r.returncode} {r.stdout} {r.stderr}")
+        t_inject = time.perf_counter()
+        reason = f"{XID_79}(GPU 0) (x1)"
+        server_until(lambda: err_state(client).health == HealthStateType.UNHEALTHY,
+                     "the Xid 79 check Unhealthy")
+        rec["inject_to_unhealthy_ms"] = (time.perf_counter() - t_inject) * 1e3
+        st = err_state(client)
+        if st.reason != reason or "REBOOT_SYSTEM" not in st.suggested_actions.repair_actions:
+            raise AssertionError(f"{ERR_KMSG}: {st.to_dict()}")
+        r = server_cli("status", "--port", str(port), "--json")
+        status = json.loads(r.stdout)
+        if r.returncode != 1 or {"component": ERR_KMSG, "health": "Unhealthy",
+                                 "reason": reason} not in status["components"]:
+            raise AssertionError(f"status --json: rc {r.returncode} {status}")
+        line("server", f"inject-fault --name {XID_79}: {ERR_KMSG} Unhealthy '{reason}' after "
+                       f"{rec['inject_to_unhealthy_ms']:.1f} ms; status --json exits 1 with it")
+
+        # idle: no request for SERVER_IDLE_S (the remediation scan runs in it)
+        client.close()
+        cpu0, t0 = child.cpu_s(), time.perf_counter()
+        time.sleep(SERVER_IDLE_S)
+        rec["idle_cpu_s_per_s"] = (child.cpu_s() - cpu0) / (time.perf_counter() - t0)
+        idle_threads = child.memory(ready)["threads"]
+        client.healthz()
+        kept_threads = child.memory(ready)["threads"]
+        audit = {}
+
+        def dry_run_row():
+            audit.update(client.get_remediation_audit(component=ERR_KMSG))
+            return any(a["action"] == "reboot_system" and a["outcome"] == "dry_run"
+                       for a in audit["attempts"])
+
+        server_until(dry_run_row, "the dry-run reboot_system row")
+        by_outcome = audit["status"]["audit"]["by_outcome"]
+        if set(by_outcome) != {"dry_run"}:
+            raise AssertionError(f"remediation outcomes {by_outcome}: an executor was called")
+        r = server_cli("set-healthy", "--component", ERR_KMSG, "--port", str(port),
+                       "--data-dir", str(w))
+        if r.returncode != 0:
+            raise AssertionError(f"set-healthy: rc {r.returncode} {r.stderr}")
+        server_until(lambda: err_state(client).health == HealthStateType.HEALTHY,
+                     "Healthy after set-healthy")
+        rec["audit_by_outcome"] = by_outcome
+        mem = child.memory(ready)
+        rec.update(mem)
+        rec["threads"] = {"idle_no_connection": idle_threads, "one_connection": kept_threads,
+                          "at_the_end": mem["threads"]}
+        line("server", f"remediation audit {by_outcome} (0 executor calls); set-healthy over "
+                       f"HTTP: Healthy; idle {SERVER_IDLE_S:.0f} s: {rec['idle_cpu_s_per_s']:.5f} CPU "
+                       f"s per s; threads {idle_threads} idle, {kept_threads} with one kept-alive "
+                       f"connection")
+
+        # SIGTERM, then a second child over the same data directory
+        client.close()
+        rc, stop_s = child.terminate()
+        if rc != 0:
+            raise AssertionError(f"run child exited {rc} on SIGTERM: {child.log()}")
+    except BaseException:
+        child.kill()
+        raise
+    rec["sigterm_exit_s"] = stop_s
+    conn = sqlite3.connect(w / "tpud.state")
+    try:
+        integrity = conn.execute("PRAGMA integrity_check").fetchone()[0]
+    finally:
+        conn.close()
+    if integrity != "ok":
+        raise AssertionError(f"integrity_check: {integrity}")
+    db = DB(str(w / "tpud.state"))
+    before = len(HealthLedger(db).history())
+    events = [(e.name, e.time) for e in EventStore(db).bucket(ERR_KMSG).get(0)]
+    db.close()
+    again = RunChild(w, port, lib)
+    try:
+        again.listening()
+        client = Client(f"https://127.0.0.1:{port}", timeout=30)
+        server_until(healthz, "/healthz after the restart")
+        rec["restart_ready_s"] = time.perf_counter() - again.t0
+        # one check now, after the restart (a run begun before may store last)
+        after_check = client.trigger_check(component=ERR_KMSG)[0].states[0]
+        evs = client.get_events(start_time=0, components=[ERR_KMSG])[0].events
+        client.close()
+        rc2, _ = again.terminate()
+    except BaseException:
+        again.kill()
+        raise
+    db = DB(str(w / "tpud.state"))
+    after = len(HealthLedger(db).history())
+    kept = set(events) <= {(e.name, e.time) for e in EventStore(db).bucket(ERR_KMSG).get(0)}
+    db.close()
+    if rc2 != 0 or after != before or after_check.health != HealthStateType.HEALTHY or \
+            not any(e.name == XID_79 for e in evs) or not kept:
+        raise AssertionError(f"restart: rc {rc2}, transitions {before} -> {after}, "
+                             f"{after_check.health}, events {evs} (before {events})")
+    if mem["vmrss_peak_sampled_mb"] > planes_on_peak_mb + PLANES_VMRSS_MB:
+        raise AssertionError(f"the run child's VmRSS {mem['vmrss_peak_sampled_mb']:.1f} MB, more "
+                             f"than {PLANES_VMRSS_MB} MB over the planes-on daemon child's "
+                             f"{planes_on_peak_mb:.1f} MB")
+    if mem["dirty_mb"] > DAEMON_RSS_BUDGET_MB:
+        raise AssertionError(f"the run child dirtied {mem['dirty_mb']:.1f} MB, over the "
+                             f"{DAEMON_RSS_BUDGET_MB} MB budget")
+    rec.update(integrity_check=integrity, transitions=before, restart_new_transitions=after - before,
+               events_kept=len(events), planes_on_daemon_vmrss_mb=planes_on_peak_mb,
+               phase_s=time.perf_counter() - t_phase)
+    line("server", f"SIGTERM: exit 0 in {stop_s:.3f} s; integrity_check {integrity}; a second "
+                   f"child over the same data dir ready in {rec['restart_ready_s']:.3f} s: "
+                   f"{before} -> {after} transitions, the {len(events)} events of "
+                   f"{ERR_KMSG} kept; VmRSS "
+                   f"sampled peak {mem['vmrss_peak_sampled_mb']:.1f} MB (planes-on daemon "
+                   f"{planes_on_peak_mb:.1f}, ceiling +{PLANES_VMRSS_MB}); dirtied "
+                   f"{mem['dirty_mb']:.1f} MB (budget {DAEMON_RSS_BUDGET_MB})")
+    print(json.dumps({"server": rec}), flush=True)
+    return rec
+
+
 # -- 8. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
@@ -3487,7 +3880,9 @@ def main() -> int:
         phase_health(workdir, smi)
         phase_host(workdir, smi, adapter["c1"])
         daemon = phase_daemon(workdir, smi)
-        phase_session(workdir, smi, daemon["steady"]["vmrss_peak_sampled_mb"])
+        planes_on_peak = daemon["steady"]["vmrss_peak_sampled_mb"]
+        phase_session(workdir, smi, planes_on_peak)
+        phase_server(workdir, smi, planes_on_peak, workdir / "native" / native.LIB_NAME)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()

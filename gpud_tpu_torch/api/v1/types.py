@@ -6,8 +6,8 @@ surface of the reference daemon's API types (reference: api/v1/types.go:17-259).
 This module holds health states, repair actions, suggested actions, events,
 metrics, the component wrappers, the block-device tree the disk check
 reads, the package status, the machine and GPU inventory (``MachineInfo``
-with ``GPUInfo`` where the reference package has ``TPUInfo``) and the login
-request and response.
+with ``GPUInfo`` where the reference package has ``TPUInfo``), the login
+request and response and the gossip request.
 
 Everything is a plain dataclass with explicit ``to_dict``/``from_dict`` so
 the JSON wire format is stable and dependency-free.
@@ -712,4 +712,27 @@ class LoginResponse:
             machine_proof=d.get("machine_proof", ""),
             error=d.get("error", ""),
             status=d.get("status", ""),
+        )
+
+
+@dataclass
+class GossipRequest:
+    machine_id: str = ""
+    machine_info: Optional[MachineInfo] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"machine_id": self.machine_id}
+        if self.machine_info is not None:
+            d["machine_info"] = self.machine_info.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "GossipRequest":
+        return cls(
+            machine_id=d.get("machine_id", ""),
+            machine_info=(
+                MachineInfo.from_dict(d["machine_info"])
+                if d.get("machine_info")
+                else None
+            ),
         )

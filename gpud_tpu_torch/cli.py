@@ -19,6 +19,18 @@ needs ``cryptography``); ``update`` sets or checks the target version, or
 installs one now (``--install``); ``list-plugins``, ``custom-plugins FILE``
 and ``run-plugin-group FILE [--tag T]`` list, validate and run custom
 plugins. Each prints what ``tpud``'s subcommand of the same name prints.
+
+``run`` starts the daemon with its local API (``gpud_tpu_torch/server``;
+HTTPS on port 15132 unless ``--port``/``--no-tls``) and prints
+``tpud <version> listening on <url>``; ``status``, ``set-healthy``,
+``predict``, ``fabric`` and ``session status`` ask a running daemon over
+that API (the client SDK, ``gpud_tpu_torch/client/v1.py``);
+``inject-fault`` writes a fault line into the kmsg file the daemon reads;
+``notify`` records a startup or shutdown event in the state DB; ``up``
+enrolls with a control plane and installs the systemd unit
+(``gpud_tpu_torch/manager/systemd.py``), ``down`` removes it. Each has
+``tpud``'s flags, output, ``--json`` schema and exit codes, in the port's
+nouns (``--gpu-id``, Xid error names).
 """
 
 from __future__ import annotations
@@ -26,7 +38,9 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import signal
 import sys
+import time
 from typing import List, Optional
 
 from gpud_tpu_torch import config as cfgmod
@@ -207,21 +221,45 @@ def cmd_remediation(args) -> int:
 
 
 def cmd_scan(args) -> int:
-    """One-shot health scan of this host's GPUs (gpud_tpu_torch/scan.py)."""
+    """One-shot health scan of this host's GPUs (gpud_tpu_torch/scan.py).
+    When a daemon has run here before, its persisted ledger adds the
+    rolling-availability column (reference: cmd/gpud scan)."""
+    import os
+
     from gpud_tpu_torch.api.v1.types import HealthStateType
     from gpud_tpu_torch.scan import scan
 
+    if args.kmsg_path:
+        # scan-mode components resolve the kmsg path via the env override
+        os.environ["TPUD_KMSG_FILE_PATH"] = args.kmsg_path
+    availability = {}
+    cfg = _build_config(args)
+    if not cfg.db_in_memory and os.path.isfile(cfg.state_file()):
+        try:
+            from gpud_tpu_torch.health_history import HealthLedger
+            from gpud_tpu_torch.sqlite import DB
+
+            availability = HealthLedger(DB(cfg.state_file())).availability_all()
+        except Exception:  # noqa: BLE001 — a corrupt DB must not block scan
+            availability = {}
     sink = io.StringIO() if args.as_json else sys.stdout
-    results = scan(accelerator_type=args.accelerator_type, out=sink)
+    results = scan(accelerator_type=args.accelerator_type, out=sink,
+                   availability=availability)
     if args.as_json:
-        rows = [{
-            "component": r.component_name(),
-            "health": r.health_state_type(),
-            "reason": r.summary(),
-            "extra_info": dict(r.extra_info),
-            "repair_actions": list(r.suggested_actions.repair_actions)
-            if r.suggested_actions else [],
-        } for r in results]
+        rows = []
+        for r in results:
+            row = {
+                "component": r.component_name(),
+                "health": r.health_state_type(),
+                "reason": r.summary(),
+                "extra_info": dict(r.extra_info),
+                "repair_actions": list(r.suggested_actions.repair_actions)
+                if r.suggested_actions else [],
+            }
+            av = availability.get(r.component_name())
+            if av is not None:
+                row["availability"] = av
+            rows.append(row)
         print(json.dumps(rows, indent=2))
     unhealthy = [r for r in results if r.health_state_type() != HealthStateType.HEALTHY]
     return 1 if unhealthy and args.strict else 0
@@ -389,14 +427,367 @@ def cmd_run_plugin_group(args) -> int:
     return 1 if bad else 0
 
 
+def cmd_run(args) -> int:
+    """Reference: cmd/gpud run → pkg/server.New (SURVEY §3.1)."""
+    cfg = _build_config(args)
+    log_setup(cfg.log_level, cfg.log_file)
+    # main() already wired the default data-dir audit logger; only an
+    # explicit audit_log_file config overrides it here
+    if cfg.audit_log_file:
+        set_audit_logger(AuditLogger(cfg.audit_log_file))
+
+    from gpud_tpu_torch.server.server import Server
+
+    # handlers installed BEFORE boot: a SIGTERM during the (multi-second)
+    # start sequence must still run the clean shutdown path
+    stop = {"flag": False}
+
+    def _sig(_s, _f):
+        stop["flag"] = True
+
+    signal.signal(signal.SIGINT, _sig)
+    signal.signal(signal.SIGTERM, _sig)
+
+    srv = Server(config=cfg)
+    srv.start()
+    print(f"tpud {__version__} listening on {srv.base_url()}", flush=True)
+    try:
+        while not stop["flag"]:
+            time.sleep(0.5)
+    finally:
+        srv.stop()
+    return 0
+
+
+def cmd_inject_fault(args) -> int:
+    """Reference: cmd/gpud inject-fault → pkg/fault-injector."""
+    from gpud_tpu_torch.fault_injector import Injector, Request
+
+    req = Request(
+        gpu_error_name=args.name or "",
+        gpu_id=args.gpu_id,
+        detail=args.detail or "",
+        kernel_message=args.kernel_message or "",
+        repeat=getattr(args, "repeat", 1),
+        interval_seconds=getattr(args, "interval_seconds", 0.0),
+    )
+    inj = Injector(kmsg_path=args.kmsg_path)
+    res = inj.inject(req)
+    if not res.ok:
+        print(f"error: {res.error}", file=sys.stderr)
+        return 1
+    print(f"fault injected ({res.writes} write(s)): {res.line or res.entry}")
+    return 0
+
+
+def _client(args, timeout: Optional[float] = None):
+    from gpud_tpu_torch.client.v1 import DEFAULT_TIMEOUT, Client
+
+    scheme = "http" if getattr(args, "no_tls", False) else "https"
+    return Client(base_url=f"{scheme}://localhost:{args.port}",
+                  timeout=DEFAULT_TIMEOUT if timeout is None else timeout)
+
+
+def cmd_status(args) -> int:
+    """Reference: cmd/gpud status — queries the running daemon."""
+    from gpud_tpu_torch.api.v1.types import HealthStateType
+
+    try:
+        c = _client(args)
+        hz = c.healthz()
+        states = c.get_health_states()
+    except Exception as e:  # noqa: BLE001
+        print(f"tpud unreachable on port {args.port}: {e}", file=sys.stderr)
+        return 1
+    bad = sum(
+        1
+        for comp in states
+        for st in comp.states
+        if st.health != HealthStateType.HEALTHY
+    )
+    if getattr(args, "as_json", False):
+        print(json.dumps({
+            "version": hz.get("version", ""),
+            "unhealthy": bad,
+            "components": [
+                {"component": comp.component, "health": st.health,
+                 "reason": st.reason}
+                for comp in states for st in comp.states
+            ],
+        }, indent=2))
+        return 1 if bad else 0
+    print(f"tpud {hz.get('version', '?')} healthy")
+    for comp in states:
+        for st in comp.states:
+            glyph = "✔" if st.health == HealthStateType.HEALTHY else "✘"
+            print(f"  {glyph} {comp.component}: {st.health} {st.reason}")
+    return 1 if bad else 0
+
+
+def cmd_set_healthy(args) -> int:
+    from gpud_tpu_torch.log import audit
+
+    audit("cli_set_healthy", component=args.component)
+    try:
+        c = _client(args)
+        c.set_healthy(args.component)
+    except Exception as e:  # noqa: BLE001
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(f"set-healthy: {args.component}")
+    return 0
+
+
+def cmd_session(args) -> int:
+    """Show the daemon's control-plane session health: connection state,
+    circuit breaker, and the store-and-forward outbox backlog."""
+    from gpud_tpu_torch.client.v1 import ClientError
+
+    c = _client(args, timeout=float(args.timeout))
+    try:
+        out = c.get_session_status()
+    except ClientError as e:
+        print(f"error: {e.body[:500]}", file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001
+        print(f"tpud unreachable on port {args.port}: {e}", file=sys.stderr)
+        return 1
+    if getattr(args, "as_json", False):
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return 0
+    if not out.get("configured"):
+        print("session: not configured (no control-plane endpoint/token)")
+        return 0
+    sess = out.get("session") or {}
+    state = "connected" if sess.get("connected") else "disconnected"
+    if sess.get("auth_failed"):
+        state += " (auth failed; replay parked until token rotation)"
+    print(f"session: {state}  endpoint={sess.get('endpoint', '?')}")
+    if sess.get("last_connect_error"):
+        print(f"  last connect error: {sess['last_connect_error']}")
+    circuit = out.get("circuit") or {}
+    if circuit:
+        print(
+            f"circuit: {circuit.get('state', '?')}  "
+            f"failures={circuit.get('consecutive_failures', 0)}/"
+            f"{circuit.get('failure_threshold', '?')}  "
+            f"blocked_attempts={circuit.get('blocked_attempts', 0)}"
+        )
+    outbox = out.get("outbox") or {}
+    if outbox:
+        print(
+            f"outbox: backlog={outbox.get('backlog', 0)}  "
+            f"acked_seq={outbox.get('acked_seq', 0)}/"
+            f"{outbox.get('last_seq', 0)}  "
+            f"dropped(journal_full={outbox.get('dropped_journal_full', 0)}, "
+            f"retention={outbox.get('dropped_retention', 0)})"
+        )
+    print(f"degraded: {str(bool(out.get('degraded'))).lower()}")
+    return 0
+
+
+def cmd_predict(args) -> int:
+    """Show the predict engine's precursor scores: fused score, feature
+    breakdown, armed/warned state, and measured lead times."""
+    from gpud_tpu_torch.client.v1 import ClientError
+
+    c = _client(args, timeout=float(args.timeout))
+    try:
+        if getattr(args, "calibration", False):
+            out = c.get_predict_calibration(refit=getattr(args, "refit", False))
+            print(json.dumps(out, indent=2, sort_keys=True))
+            return 0
+        out = c.get_predict_scores(component=args.component, history=args.history or None)
+    except ClientError as e:
+        print(f"error: {e.body[:500]}", file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001
+        print(f"tpud unreachable on port {args.port}: {e}", file=sys.stderr)
+        return 1
+    if getattr(args, "as_json", False):
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return 0
+    status = out.get("status") or {}
+    print(
+        f"predict: threshold={status.get('threshold', '?')}  "
+        f"hysteresis={status.get('hysteresis', '?')}  "
+        f"ticks={status.get('ticks', 0)}  "
+        f"warnings={status.get('warnings_total', 0)}"
+    )
+    comps = out.get("components") or {}
+    if not comps:
+        print("no components scored yet")
+        return 0
+    for name, d in sorted(comps.items()):
+        mark = " ARMED" if d.get("armed") else ""
+        lead = d.get("lead_seconds")
+        lead_s = f"  lead={lead:.1f}s" if lead is not None else ""
+        feats = d.get("features") or {}
+        feat_s = " ".join(f"{k}={v:g}" for k, v in sorted(feats.items()))
+        print(f"  {name}: score={d.get('score', 0):.3f}{mark}{lead_s}  [{feat_s}]")
+    return 0
+
+
+def cmd_fabric(args) -> int:
+    """Show the fabric plane's per-link health matrix over the GPUs'
+    NVLink ports: discovered mesh shape, sweep status, and each link's
+    state, latency, and EWMA deviation (docs/fabric.md)."""
+    from gpud_tpu_torch.client.v1 import ClientError
+
+    c = _client(args, timeout=float(args.timeout))
+    try:
+        out = c.get_fabric(link=args.link, since=args.since or None, limit=args.limit or None)
+    except ClientError as e:
+        print(f"error: {e.body[:500]}", file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001
+        print(f"tpud unreachable on port {args.port}: {e}", file=sys.stderr)
+        return 1
+    if getattr(args, "as_json", False):
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return 0
+    status = out.get("status") or {}
+    mesh = status.get("mesh") or {}
+    shape = "x".join(str(d) for d in (mesh.get("shape") or [])) or "?"
+    print(
+        f"fabric: mesh={shape} ({mesh.get('source', 'unknown')})  "
+        f"links={status.get('links', 0)}  "
+        f"sweeps={status.get('sweeps', 0)}  "
+        f"degraded={len(status.get('degraded') or [])}  "
+        f"down={len(status.get('down') or [])}"
+    )
+    matrix = out.get("matrix") or []
+    if not matrix:
+        print("no links observed (degraded 1x1 mesh or no sweep yet)")
+        return 0
+    for row in matrix:
+        state = row.get("state") or "unswept"
+        print(
+            f"  {row.get('link')}: {state}"
+            f"  latency={row.get('latency_seconds', 0):.6f}s"
+            f"  deviation={row.get('deviation', 0):.2f}"
+        )
+    for row in out.get("history") or []:
+        print(
+            f"  [history] {row.get('ts', 0):.3f} {row.get('link')}: "
+            f"{row.get('state')} latency={row.get('latency_seconds', 0):.6f}s"
+        )
+    return 0
+
+
+def cmd_notify(args) -> int:
+    """Reference: cmd/gpud notify startup/shutdown — record a lifecycle
+    event in the os bucket so the control plane sees planned transitions."""
+    from gpud_tpu_torch.api.v1.types import Event, EventType
+    from gpud_tpu_torch.eventstore import EventStore
+    from gpud_tpu_torch.sqlite import DB
+
+    cfg = _build_config(args)
+    es = EventStore(DB(cfg.state_file()))
+    es.bucket("os").insert(
+        Event(
+            component="os",
+            name=f"daemon_{args.phase}",
+            type=EventType.INFO,
+            message=f"tpud {args.phase} notification",
+        )
+    )
+    print(f"recorded {args.phase} notification")
+    return 0
+
+
+def cmd_up(args) -> int:
+    """Install + enroll (reference: cmd/gpud/up/command.go:25, SURVEY §3.5):
+    optional login, systemd unit install, token hand-off via FIFO."""
+    import os
+
+    cfg = _build_config(args)
+    if args.token and args.endpoint:
+        from gpud_tpu_torch.gpu.instance import new_instance
+        from gpud_tpu_torch.login import login as do_login
+        from gpud_tpu_torch.metadata import Metadata
+        from gpud_tpu_torch.providers import detect as provider_detect
+        from gpud_tpu_torch.sqlite import DB
+
+        prov = provider_detect.detect(timeout=3.0)
+        md = Metadata(DB(cfg.state_file()))
+        try:
+            do_login(
+                args.endpoint, args.token, md,
+                gpu_instance=new_instance(),
+                provider=prov.provider, region=prov.region,
+            )
+        except Exception as e:  # noqa: BLE001
+            print(f"login failed: {e}", file=sys.stderr)
+            return 1
+        print("login ok")
+    if args.no_systemd:
+        print("skipping systemd install (--no-systemd)")
+        return 0
+    if os.geteuid() != 0:
+        print("error: tpud up requires root for systemd install "
+              "(use --no-systemd to skip)", file=sys.stderr)
+        return 1
+    from gpud_tpu_torch.daemon import Daemon
+    from gpud_tpu_torch.manager import systemd
+
+    flags = []
+    if cfg.data_dir:
+        flags.append(f"--data-dir {cfg.data_dir}")
+    err = systemd.install_unit(flags=" ".join(flags))
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 1
+    # hand a fresh token to the (possibly already-running) daemon; the
+    # daemon creates the FIFO at boot, so retry briefly
+    if args.token:
+        err = "daemon fifo not ready"
+        for _ in range(10):
+            err = Daemon.write_token(args.token, cfg.fifo_file())
+            if err is None:
+                break
+            time.sleep(1.0)
+        if err is not None:
+            print(f"warning: token hand-off failed: {err} — "
+                  "run `tpud up --token ... --endpoint ...` to enroll",
+                  file=sys.stderr)
+            return 1
+    print("tpud installed and started (systemd)")
+    return 0
+
+
+def cmd_down(args) -> int:
+    """Reference: cmd/gpud down — stop + disable the unit."""
+    from gpud_tpu_torch.manager import systemd
+
+    err = systemd.uninstall_unit()
+    if err:
+        print(f"warning: {err}", file=sys.stderr)
+    print("tpud stopped")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gpud_tpu_torch",
         description="tpud's accelerator tools on an NVIDIA GPU",
     )
+    p.add_argument("--version", action="version", version=f"tpud {__version__}")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    pu = sub.add_parser("up", help="install as systemd service + enroll")
+    _add_common_flags(pu)
+    pu.add_argument("--token", default="", help="control-plane join token")
+    pu.add_argument("--endpoint", default="", help="control-plane endpoint URL")
+    pu.add_argument("--no-systemd", action="store_true")
+    pu.set_defaults(fn=cmd_up, audited=True)
+
+    pd = sub.add_parser("down", help="stop and disable the systemd service")
+    _add_common_flags(pd)
+    pd.set_defaults(fn=cmd_down, audited=True)
+
     ps = sub.add_parser("scan", help="one-shot health scan of this host's GPUs")
+    _add_common_flags(ps)
     ps.add_argument("--accelerator-type", default="",
                     help="e.g. h100-sxm-8 (default: from the enumerated GPUs)")
     ps.add_argument("--strict", action="store_true", help="exit 1 on any unhealthy check")
@@ -419,9 +810,51 @@ def build_parser() -> argparse.ArgumentParser:
                      help="where the scan runs (default: the card)")
     pfs.set_defaults(fn=cmd_fleet_scan)
 
+    pr = sub.add_parser("run", help="run the daemon")
+    _add_common_flags(pr)
+    pr.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    pr.add_argument("--db-in-memory", action="store_true")
+    pr.add_argument("--no-tls", action="store_true")
+    pr.add_argument("--accelerator-type", default="")
+    pr.add_argument("--expected-gpu-count", type=int, default=0)
+    pr.add_argument("--plugin-specs", default="", help="path to plugins.yaml")
+    pr.add_argument("--endpoint", default="", help="control-plane endpoint")
+    pr.add_argument("--token", default="", help="control-plane token")
+    pr.add_argument("--disable-components", default="",
+                    help="comma-separated component names to disable")
+    pr.add_argument("--pprof", action="store_true",
+                    help="enable /admin/pprof debug endpoints")
+    pr.set_defaults(fn=cmd_run, audited=True)
+
+    pi = sub.add_parser("inject-fault", help="inject a synthetic fault via kmsg")
+    _add_common_flags(pi)
+    pi.add_argument("--name", help="catalogued GPU error name (e.g. gpu_fallen_off_bus, Xid 79)")
+    pi.add_argument("--gpu-id", type=int, default=0)
+    pi.add_argument("--detail", default="")
+    pi.add_argument("--kernel-message", default="", help="raw kernel message instead of --name")
+    pi.add_argument("--repeat", type=int, default=1,
+                    help="burst: write the fault N times (flap modelling)")
+    pi.add_argument("--interval-seconds", type=float, default=0.0,
+                    help="spacing between burst writes")
+    pi.set_defaults(fn=cmd_inject_fault, audited=True)
+
+    pst = sub.add_parser("status", help="query the running daemon")
+    pst.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    pst.add_argument("--no-tls", action="store_true", help="daemon runs with --no-tls")
+    pst.add_argument("--json", action="store_true", dest="as_json",
+                     help="machine-readable status")
+    pst.set_defaults(fn=cmd_status)
+
     pc = sub.add_parser("compact", help="VACUUM the state DB (daemon stopped)")
     _add_common_flags(pc)
     pc.set_defaults(fn=cmd_compact, audited=True)
+
+    ph = sub.add_parser("set-healthy", help="clear a component's sticky state")
+    _add_common_flags(ph)  # data-dir locates the audit trail
+    ph.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    ph.add_argument("--no-tls", action="store_true", help="daemon runs with --no-tls")
+    ph.add_argument("--component", required=True)
+    ph.set_defaults(fn=cmd_set_healthy, audited=True)
 
     pm = sub.add_parser("metadata", help="dump the metadata table")
     _add_common_flags(pm)
@@ -457,6 +890,54 @@ def build_parser() -> argparse.ArgumentParser:
     prm.add_argument("--json", action="store_true", dest="as_json",
                      help="machine-readable attempts + summary")
     prm.set_defaults(fn=cmd_remediation)
+
+    ppr = sub.add_parser(
+        "predict",
+        help="predictive health: per-component precursor scores",
+    )
+    ppr.add_argument("--component", default="", help="filter to one component")
+    ppr.add_argument("--history", type=int, default=0,
+                     help="append the last N score points per component")
+    ppr.add_argument("--calibration", action="store_true",
+                     help="show learned per-class threshold calibration")
+    ppr.add_argument("--refit", action="store_true",
+                     help="with --calibration: re-fit from the ledger first")
+    ppr.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    ppr.add_argument("--no-tls", action="store_true")
+    ppr.add_argument("--timeout", type=float, default=30.0)
+    ppr.add_argument("--json", action="store_true", dest="as_json",
+                     help="machine-readable scores + status")
+    ppr.set_defaults(fn=cmd_predict)
+
+    pfa = sub.add_parser(
+        "fabric",
+        help="NVLink fabric health: per-link sweep matrix",
+    )
+    pfa.add_argument("--link", default="",
+                     help="append history for one link (e.g. gpu0/nvlink0)")
+    pfa.add_argument("--since", type=float, default=0.0,
+                     help="history unix-timestamp floor")
+    pfa.add_argument("--limit", type=int, default=0,
+                     help="max history rows to append")
+    pfa.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    pfa.add_argument("--no-tls", action="store_true")
+    pfa.add_argument("--timeout", type=float, default=30.0)
+    pfa.add_argument("--json", action="store_true", dest="as_json",
+                     help="machine-readable matrix + status")
+    pfa.set_defaults(fn=cmd_fabric)
+
+    pse = sub.add_parser(
+        "session", help="control-plane session / outbox health"
+    )
+    ssub = pse.add_subparsers(dest="session_cmd", required=True)
+    sst = ssub.add_parser(
+        "status", help="connection, circuit-breaker, and outbox state"
+    )
+    sst.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    sst.add_argument("--no-tls", action="store_true")
+    sst.add_argument("--timeout", type=float, default=30.0)
+    sst.add_argument("--json", action="store_true", dest="as_json")
+    sst.set_defaults(fn=cmd_session)
 
     plp = sub.add_parser("list-plugins", help="list configured plugin specs")
     _add_common_flags(plp)
@@ -506,6 +987,11 @@ def build_parser() -> argparse.ArgumentParser:
     prg.add_argument("file")
     prg.add_argument("--tag", default="")
     prg.set_defaults(fn=cmd_run_plugin_group)
+
+    pn = sub.add_parser("notify", help="record a lifecycle notification")
+    _add_common_flags(pn)
+    pn.add_argument("phase", choices=["startup", "shutdown"])
+    pn.set_defaults(fn=cmd_notify, audited=True)
     return p
 
 

@@ -21,8 +21,9 @@ config overrides (:788-792), opens the control-plane session when an
 endpoint and a token are known (:799-977, with the dispatcher, the
 credential pairing, the circuit breaker's peers and the outbox's replay on
 every connect) and watches the token FIFO (:1025-1193); ``stop`` closes
-the session under its lock (:723-738). The reference's HTTP listener and
-chaos manager are not ported yet; the port's server will wrap this class.
+the session under its lock (:723-738). ``gpud_tpu_torch.server.server.
+Server`` adds the HTTP listener (:683-716); the chaos manager is not
+ported yet.
 Nothing here imports torch: the anomaly check scores with numpy unless the
 process already holds a CUDA context.
 """
@@ -77,6 +78,7 @@ from gpud_tpu_torch.sqlite import open_rw_ro
 from gpud_tpu_torch.storage import BatchWriter, checkpoint_wal
 from gpud_tpu_torch.tracing import DEFAULT_TRACER, current_correlation_id
 from gpud_tpu_torch.update import VersionFileWatcher
+from gpud_tpu_torch.version import __version__
 
 logger = get_logger(__name__)
 
@@ -93,6 +95,7 @@ class Daemon:
         metrics_registry=None,
     ) -> None:
         self.config = config or default_config()
+        self.version = __version__
         err = self.config.validate()
         if err:
             raise ValueError(err)
@@ -299,7 +302,8 @@ class Daemon:
         self.session = None
         self.dispatcher = None
         self.last_gossip = None
-        self.last_replay_jitter_seconds = 0.0
+        # None until the first connect (the status route omits it then)
+        self.last_replay_jitter_seconds = None
         self._outbox_replay_job = None
         self._session_mu = threading.Lock()
         # serializes credential-pair metadata writes (rotations vs the
@@ -315,7 +319,7 @@ class Daemon:
             c.name() for c in self.registry.all() if c.is_supported()
         }
         self._retention_targets = []
-        self._started = False
+        self._assembled = False
 
     def _load_plugins(self) -> None:
         """Custom plugins from the specs file (server.py:340-366): init
@@ -867,9 +871,15 @@ class Daemon:
         """Register every periodic job, then start the scheduler: jobs known
         at start form the startup-readiness set, and their first runs go to
         the pool in parallel. Idempotent."""
-        if self._started:
+        self._assemble()
+        sdnotify.ready()
+
+    def _assemble(self) -> None:
+        """What ``start`` builds, once (server.py:569-655); the server calls
+        it before its listener and tells systemd it is ready after."""
+        if self._assembled:
             return
-        self._started = True
+        self._assembled = True
         for comp in self.registry.all():
             if comp.name() in self.supported_names:
                 comp.start()
@@ -932,7 +942,10 @@ class Daemon:
         self._reapply_config_overrides()
         self._maybe_start_session()
         self._start_token_fifo()
-        sdnotify.ready()
+
+    def _close_listener(self) -> None:
+        """Where the reference stops its serve loop in ``stop``
+        (server.py:739-742); the daemon has no listener."""
 
     def _purge_retention(self) -> None:
         for name, purge in self._retention_targets:
@@ -960,6 +973,7 @@ class Daemon:
         self.package_manager.close()
         if self.update_watcher is not None:
             self.update_watcher.close()
+        self._close_listener()
         self.metrics_syncer.close()
         self.self_metrics.close()
         self.kmsg_watcher.close()

@@ -408,7 +408,8 @@ def test_the_daemon_registers_the_reference_s_jobs(tmp_path):
 # token FIFO, the credential pairing of server.py:799-977 (flags against the
 # enrolled pair, the migration guess, the auth-failure fallback, rotations
 # that survive restarts) and the boot-time composition. The listener's case
-# (``start`` twice keeps the same port and serve thread) waits for A9.
+# (``start`` twice keeps the same port and serve thread) runs on the
+# server, in tests/test_torch_server.py.
 globals().update(port_tests(
     "test_server_composition.py",
     replace=[("from gpud_tpu_torch.server.server import Server",

@@ -7,8 +7,9 @@ tests/test_wire_roundtrips.py.
 
 The whole dict equals the reference's on this host except ``gpu_info``,
 which the reference reports as ``tpu_info``; the figures that move between
-two reads (uptime, each file system's usage) are read once, through one
-function both packages call. The NIC and disk readers equal psutil's. The
+two reads (uptime, each file system's usage, the used bytes of each mount
+in the block-device tree) are read once, through one function both
+packages call. The NIC and disk readers equal psutil's. The
 GPU part is read on the fake NVML of tests/torch_fakes.py and on the mock."""
 
 import os
@@ -57,8 +58,13 @@ def test_the_disk_readers_equal_psutil():
 
 @pytest.fixture()
 def still_host(monkeypatch):
-    """Uptime and file-system usage read once per path, for both packages."""
+    """Uptime and file-system usage read once per path, for both packages:
+    the usage of the partitions and that of the block-device tree's mounts
+    (``blockdev._statvfs_used``), which a test writing files on another
+    worker moves between the two packages' reads."""
+    import gpud_tpu.blockdev as ref_blockdev
     import gpud_tpu.host as ref_host
+    from gpud_tpu_torch import blockdev as port_blockdev
     from gpud_tpu_torch import host as port_host
 
     up = ref_host.uptime_seconds()
@@ -74,6 +80,16 @@ def still_host(monkeypatch):
 
     monkeypatch.setattr(ref_mi.psutil, "disk_usage", usage)
     monkeypatch.setattr(procfs, "disk_usage", usage)
+    used = {}
+    read_used = ref_blockdev._statvfs_used
+
+    def statvfs_used(path):
+        if path not in used:
+            used[path] = read_used(path)
+        return used[path]
+
+    monkeypatch.setattr(ref_blockdev, "_statvfs_used", statvfs_used)
+    monkeypatch.setattr(port_blockdev, "_statvfs_used", statvfs_used)
 
 
 def test_machine_info_is_the_reference_s_but_the_accelerator(still_host):

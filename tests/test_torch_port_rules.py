@@ -114,6 +114,13 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.plugins.component",
     "gpud_tpu_torch.kapmtls",
     "gpud_tpu_torch.login",
+    # the local API
+    "gpud_tpu_torch.server",
+    "gpud_tpu_torch.server.tls",
+    "gpud_tpu_torch.server.app",
+    "gpud_tpu_torch.server.server",
+    "gpud_tpu_torch.client.v1",
+    "gpud_tpu_torch.manager.systemd",
 ])
 def test_the_daemon_path_loads_neither_torch_nor_jax(module):
     # the daemon's modules keep torch (the CUDA runtime) off its import path
@@ -461,3 +468,76 @@ def test_cuda_sources_are_packaged():
     assert sorted(p.name for p in (REPO / "gpud_tpu_torch" / "csrc").glob("*.cu")) == [
         "packed_scan.cu"]
     assert "csrc/*.cu" in (REPO / "pyproject.toml").read_text()
+
+
+SERVER_FILES = [f"gpud_tpu_torch/{m}.py" for m in (
+    "server/__init__", "server/tls", "server/app", "server/server", "client/__init__",
+    "client/v1", "manager/systemd")]
+
+
+@pytest.mark.parametrize("path", SERVER_FILES)
+def test_the_local_api_needs_no_extra_package(path):
+    # the standard library's HTTP server and client; cryptography only
+    # inside the function that makes the certificate
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    anywhere = [m for m in _imported_modules(tree) if m.split(".")[0] in
+                FORBIDDEN + ("torch", "triton", "urllib3") + NOT_NEEDED]
+    assert not anywhere, f"{path} imports {anywhere}"
+    top = [m for m in _module_level_imports(tree)
+           if any(m == p or m.startswith(p + ".") for p in LAZY)]
+    assert not top, f"{path} imports {top} at module level"
+
+
+def test_run_help_and_the_server_module_load_no_torch():
+    # torch is made unimportable: ``run --help`` and the server's import
+    # must not reach it
+    code = textwrap.dedent("""
+        import json, runpy, sys
+        sys.modules["torch"] = None
+        import gpud_tpu_torch.server.server
+        sys.argv = ["gpud_tpu_torch", "run", "--help"]
+        try:
+            runpy.run_module("gpud_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            code = e.code
+        print(json.dumps([code, sorted(m for m in sys.modules
+                                       if m.split(".")[0] in ("torch", "jax", "gpud_tpu"))]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert "--no-tls" in proc.stdout and json.loads(lines[-1]) == [0, ["torch"]]
+
+
+def test_a_tls_server_makes_its_certificate_without_loading_cryptography(tmp_path):
+    # the self-signed certificate is made in a child interpreter: the
+    # daemon never maps cryptography's extension
+    pytest.importorskip("cryptography")
+    code = textwrap.dedent(f"""
+        import json, os, ssl, sys, urllib.request
+        os.environ["TPUD_GPU_MOCK_ALL_SUCCESS"] = "1"
+        os.environ["TPUD_LISTEN_HOST"] = "127.0.0.1"
+        sys.path.insert(0, "tests")
+        from torch_fakes import stub_port_probes
+        stub_port_probes()
+        from gpud_tpu_torch.config import default_config
+        from gpud_tpu_torch.server.server import Server
+        w = {str(tmp_path)!r}
+        open(w + "/kmsg", "w").close()
+        s = Server(default_config(data_dir=w + "/d", kmsg_path=w + "/kmsg", port=0, tls=True,
+                                  endpoint="", token="", components_enabled=["cpu"]))
+        s.start()
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        ctx.check_hostname, ctx.verify_mode = False, ssl.CERT_NONE
+        with urllib.request.urlopen(f"https://127.0.0.1:{{s.port}}/healthz", context=ctx,
+                                    timeout=10) as r:
+            status = json.loads(r.read())["status"]
+        s.stop()
+        print(json.dumps([status, sorted(m for m in sys.modules
+                                         if m.split(".")[0] in ("cryptography", "torch"))]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.splitlines()[-1]) == ["ok", []]

@@ -36,8 +36,7 @@ globals().update(port_tests("test_update_edges.py"))
 globals().update(port_tests("test_update_install_fixes.py"))
 globals().update(port_tests("test_update_pipeline.py"))
 globals().update(port_tests("test_distsign_tampering.py"))
-# ``notify`` waits for the port's CLI of A9 (the daemon's surfaces)
-globals().update(port_tests("test_release_cli.py", exclude=["test_cli_notify"]))
+globals().update(port_tests("test_release_cli.py"))
 
 PKGS = {"ref": (ref_ui, ref_distsign, ref_update), "port": (port_ui, port_distsign, port_update)}
 SEED = 5
