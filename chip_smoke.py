@@ -159,9 +159,35 @@ Phases, each printing its own lines:
              VmRSS (within PLANES_VMRSS_MB of the planes-on daemon child's)
              and dirtied pages (the budget); printed as the ``{"server": ...}``
              line.
+13. manager - (after the server phase) the manager tier:
+             ``python -m gpud_tpu_torch manager serve --shards 8`` as a
+             child on 127.0.0.1 (ports first taken from 127.0.0.1:0; its
+             journal on the container's local filesystem), the session
+             phase's daemon child (NVML, planes on) enrolled over v1 (an
+             Xid 79 through ``manager request injectFault`` until the fleet
+             pane shows its Unhealthy transition) and then over v2, each
+             answering ``manager request <id> states`` five times as its
+             stores say; then the reference's fleet load (bench.py:1710-1717):
+             2048 simulated agents x 120 transition records in outbox_batch
+             frames of 60 over the v2 Frame tunnel from 48 sender threads,
+             frames encoded before the timed window, while an operator reads
+             the rollup and agents panes; every operator route 20 times;
+             SIGTERM (exit 0) and a restart over the same journal at 3
+             shards (its rebuild in parallel, the default); the journal
+             replayed here serially at 8 shards. Gates: every agent acked to
+             its last seq and the journal's rows 245,760 plus the daemon's
+             (every record it had acked), no executor drop; the restarted
+             manager's view and the serial rebuild's equal to the view served
+             before the SIGTERM; one
+             transition and one dry-run row for the Xid, no executor call;
+             no torch mapped in the manager. Ingest records/s, enroll ms,
+             rollup p95 cold and cached, the reader-side enqueue p95, [p50,
+             max] ms per route, VmRSS before and after the load, dirtied
+             pages, rebuild seconds, ready and SIGTERM seconds; printed as
+             the ``{"manager": ...}`` line.
 
 The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}``,
-``{"session": ...}``, ``{"server": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
+``{"session": ...}``, ``{"server": ...}``, ``{"manager": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -2666,6 +2692,11 @@ def session_child(workdir: str, endpoint: str, protocol: str, v2_target: str, ma
 
     def call(self, req):
         probe = req.get("probe") if isinstance(req, dict) else None
+        if probe is None and isinstance(req, dict) and req.get("method") == "states":
+            # an operator's states request through a manager (v2's typed
+            # packets carry no probe): filed in arrival order
+            with lock:
+                probe = f"unprobed-states-{sum(k.startswith('unprobed-') for k in answers)}"
         before = view(req) if probe else None
         resp = dispatch_call(self, req)
         if probe:
@@ -3493,6 +3524,592 @@ def phase_server(workdir: Path, smi_line: str, planes_on_peak_mb: float, lib: Pa
     return rec
 
 
+# -- 13. manager ---------------------------------------------------------------------
+
+# the reference's fleet load (bench.py:1710-1717, bench_fleet_socket): 2048
+# agents of 120 transition records each, in outbox_batch frames of 60, over
+# the v2 Frame tunnel, 48 concurrent senders, 8 shards
+MANAGER_AGENTS = 2048
+MANAGER_RECORDS_PER_AGENT = 120
+MANAGER_BATCH = 60
+MANAGER_SHARDS = 8
+MANAGER_SENDERS = 48
+MANAGER_RESTART_SHARDS = 3  # the restart re-partitions the journal over another shard count
+MANAGER_REPS = 20           # reads per operator route, for p50 and max
+MANAGER_STATES_ASKS = 5
+MANAGER_WAIT_S = 60.0
+MANAGER_COMPONENTS = ("gpu-memory", "gpu-nvlink", "gpu-kmsg", "gpu-runtime")
+MANAGER_CID = "smoke-cid-socket"
+MANAGER_AGENT = "chip-smoke-agent"
+
+# ``python -m gpud_tpu_torch manager serve`` run through runpy, with the
+# control plane's stop() wrapped to report what only the process knows:
+# its ingest executor's stats (the reader-side enqueue latency) and
+# whether torch was ever imported
+MANAGER_WRAPPER = """
+import json, runpy, sys
+report = sys.argv.pop(1)
+from gpud_tpu_torch.manager import control_plane as cpm
+_stop = cpm.ControlPlane.stop
+
+def stop(self):
+    rec = {"executor": self.ingest_executor.stats(),
+           "rebuild": {"seconds": self.rollup.last_rebuild_seconds,
+                       "shards": self.rollup.shard_count,
+                       "parallel": self.rollup.rebuild_parallel},
+           "torch_loaded": sorted(m for m in sys.modules if m.split(".")[0] == "torch"),
+           "grpc_loaded": "grpc" in sys.modules}
+    _stop(self)
+    rec["writer"] = self.writer.stats()
+    with open(report, "w") as f:
+        json.dump(rec, f)
+
+cpm.ControlPlane.stop = stop
+sys.argv[0] = "gpud_tpu_torch"
+runpy.run_module("gpud_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+class ManagerChild:
+    """``python -m gpud_tpu_torch manager serve`` as a child process on
+    127.0.0.1, ports first taken from ``127.0.0.1:0``; ready once it prints
+    its endpoint line."""
+
+    def __init__(self, w: Path, data_dir: Path, tag: str, shards: int = MANAGER_SHARDS) -> None:
+        self.port, self.grpc_port = free_port(), free_port()
+        self.report = w / f"manager_{tag}.json"
+        self.err = open(w / f"manager_{tag}.log", "wb")
+        env = {k: v for k, v in os.environ.items() if k not in (
+            gpu_instance.ENV_MOCK_ALL_SUCCESS, "TPUD_ENDPOINT", "TPUD_TOKEN")}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", MANAGER_WRAPPER, str(self.report), "manager", "serve",
+             "--data-dir", str(data_dir), "--shards", str(shards),
+             "--port", str(self.port), "--grpc-port", str(self.grpc_port)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=self.err, text=True)
+        ready = self.proc.stdout.readline()
+        self.ready_s = time.perf_counter() - self.t0
+        if not ready:
+            self.kill()
+            raise AssertionError(f"manager {tag}: no endpoint line: {self.log()}")
+        self.info = json.loads(ready)
+        if self.info["endpoint"] != f"http://127.0.0.1:{self.port}" or \
+                self.info["grpc_port"] != self.grpc_port:
+            raise AssertionError(f"manager {tag}: {self.info}")
+        self.endpoint = self.info["endpoint"]
+
+    def vmrss_mb(self) -> float:
+        return int(Path(f"/proc/{self.proc.pid}/statm").read_text().split()[1]) * \
+            os.sysconf("SC_PAGE_SIZE") / 2**20
+
+    def dirty_mb(self) -> float:
+        return sum(int(r.split()[1]) for r in
+                   Path(f"/proc/{self.proc.pid}/smaps").read_text().splitlines()
+                   if r.startswith(("Private_Dirty:", "Shared_Dirty:"))) / 1024.0
+
+    def mapped_torch(self) -> list:
+        """Files of a torch install the process maps (libtorch loads with
+        any import of torch)."""
+        return sorted({row.split()[-1] for row in
+                       Path(f"/proc/{self.proc.pid}/maps").read_text().splitlines()
+                       if "/torch/" in row})
+
+    def terminate(self) -> tuple:
+        """SIGTERM; (exit code, seconds to exit, the wrapper's report)."""
+        t0 = time.perf_counter()
+        self.proc.terminate()
+        try:
+            rc = self.proc.wait(timeout=SERVER_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"manager still up {SERVER_STOP_S} s after SIGTERM")
+        took = time.perf_counter() - t0
+        self.err.close()
+        report = json.loads(self.report.read_text()) if self.report.exists() else None
+        return rc, took, report
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=SERVER_STOP_S)
+
+    def log(self) -> str:
+        self.err.flush()
+        return Path(self.err.name).read_text(errors="replace")[-4000:]
+
+
+def manager_cli(*argv: str) -> tuple:
+    """One operator command against the manager: (exit code, stdout, ms)."""
+    t0 = time.perf_counter()
+    proc = server_cli(*argv)
+    ms = (time.perf_counter() - t0) * 1e3
+    if proc.returncode != 0:
+        raise AssertionError(f"{argv}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout), ms
+
+
+def fleet_frames(pb, wire, t_base: float) -> list:
+    """Every simulated agent's outbox frames, encoded before the timed
+    window as bench.py does: (machine id, [AgentPacket], last seq)."""
+    work = []
+    for i in range(MANAGER_AGENTS):
+        enc, frames, recs = wire.DeltaEncoder(), [], []
+        for n in range(MANAGER_RECORDS_PER_AGENT):
+            comp = MANAGER_COMPONENTS[n % len(MANAGER_COMPONENTS)]
+            to = "Unhealthy" if n % 2 == 0 else "Healthy"
+            frm = "Healthy" if to == "Unhealthy" else "Unhealthy"
+            ts = t_base + n * 0.001
+            payload = {"component": comp, "from": frm, "to": to, "ts": ts, "reason": "smoke"}
+            if i == 0 and n == 0:
+                payload["correlation_id"] = MANAGER_CID
+            recs.append(enc.encode_record(n + 1, ts, "transition", f"transition:{comp}:{ts}:{to}",
+                                          payload))
+            if len(recs) >= MANAGER_BATCH or n == MANAGER_RECORDS_PER_AGENT - 1:
+                pkt = pb.AgentPacket()
+                pkt.frame.req_id = f"outbox-{n + 1}"
+                pkt.frame.data = wire.encode_payload(wire.build_batch(recs))
+                frames.append(pkt)
+                recs = []
+        work.append((f"sock-{i:04d}", frames, MANAGER_RECORDS_PER_AGENT))
+    return work
+
+
+def drive_fleet(grpc_port: int, work: list, endpoint: str) -> dict:
+    """The fleet load over the v2 Frame tunnel: MANAGER_SENDERS threads,
+    each cycling its agents through one stream at a time (Hello, the
+    frames, then wait for the cumulative ack of the last seq), while an
+    operator polls the rollup and agents panes (the cold reads)."""
+    import queue as _queue
+
+    import grpc
+
+    from gpud_tpu_torch.client.v1 import Client
+    from gpud_tpu_torch.session import wire
+    from gpud_tpu_torch.session.v2 import session_pb2 as pb
+    from gpud_tpu_torch.session.v2.client import METHOD
+
+    failures, acked_to, cold_ms = [], {}, []
+    done = threading.Event()
+    mu = threading.Lock()
+
+    def operator():
+        c = Client(endpoint, timeout=30)
+        while not done.is_set():
+            for path, params in (("/v1/fleet/rollup", None), ("/v1/fleet/agents", {"limit": 100})):
+                t0 = time.perf_counter()
+                c._req("GET", path, params=params)
+                cold_ms.append((time.perf_counter() - t0) * 1e3)
+            done.wait(0.4)
+        c.close()
+
+    def drive(stream, machine_id, frames, last_seq):
+        out_q: "_queue.Queue" = _queue.Queue()
+        hello = pb.AgentPacket()
+        hello.hello.machine_id = machine_id
+        hello.hello.token = "smoke"
+        hello.hello.revision, hello.hello.min_revision, hello.hello.max_revision = 1, 1, 3
+        out_q.put(hello)
+        for f in frames:
+            out_q.put(f)
+        top = 0
+        for mpkt in stream(iter(out_q.get, None), timeout=120.0):
+            kind = mpkt.WhichOneof("payload")
+            if kind == "hello_ack" and (not mpkt.hello_ack.accepted or mpkt.hello_ack.revision < 3):
+                failures.append(f"{machine_id}: {mpkt.hello_ack}")
+                out_q.put(None)
+                return
+            if kind == "frame":
+                data = wire.decode_payload(mpkt.frame.data)
+                if isinstance(data, dict) and data.get("method") == "outboxAck":
+                    top = max(top, int(data.get("seq", 0)))
+                    if top >= last_seq:
+                        out_q.put(None)  # half-close; the manager ends the stream
+        with mu:
+            acked_to[machine_id] = top
+
+    def worker(part):
+        channel = grpc.insecure_channel(f"127.0.0.1:{grpc_port}")
+        stream = channel.stream_stream(METHOD, request_serializer=pb.AgentPacket.SerializeToString,
+                                       response_deserializer=pb.ManagerPacket.FromString)
+        try:
+            for machine_id, frames, last_seq in part:
+                try:
+                    drive(stream, machine_id, frames, last_seq)
+                except grpc.RpcError as e:
+                    failures.append(f"{machine_id}: {e.code()}")
+        finally:
+            channel.close()
+
+    reader = threading.Thread(target=operator, daemon=True)
+    threads = [threading.Thread(target=worker, args=(work[k::MANAGER_SENDERS],), daemon=True)
+               for k in range(MANAGER_SENDERS)]
+    reader.start()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    elapsed = time.perf_counter() - t0
+    done.set()
+    reader.join(timeout=60)
+    if any(t.is_alive() for t in threads) or reader.is_alive():
+        raise AssertionError("manager: a fleet sender is still running")
+    short = [m for m, _f, last in work if acked_to.get(m, 0) < last]
+    if failures or short:
+        raise AssertionError(f"manager: fleet failures {failures[:5]}, {len(short)} agents "
+                             f"not acked to their last seq ({short[:5]})")
+    total = len(work) * MANAGER_RECORDS_PER_AGENT
+    return {"elapsed_s": elapsed, "records": total, "records_per_s": total / elapsed,
+            "cold_ms": cold_ms}
+
+
+def fleet_view(client) -> dict:
+    """What an operator sees of the fleet: the rollup and every agents
+    page, less the store's generation counter and the process's count of
+    suppressed duplicates (a rebuild starts both anew)."""
+    roll = dict(client._req("GET", "/v1/fleet/rollup"))
+    for k in ("generation", "duplicates_suppressed"):
+        roll.pop(k)
+    agents, offset = [], 0
+    while offset is not None:
+        page = client._req("GET", "/v1/fleet/agents", params={"offset": offset, "limit": 500})
+        agents.extend(page["agents"])
+        offset = page["next_offset"]
+    return {"rollup": roll, "agents": agents}
+
+
+def enroll_daemon(w: Path, mgr: "ManagerChild", protocol: str, lib: Path, xid: bool) -> dict:
+    """The session phase's daemon child (NVML, planes on) enrolled with
+    the manager over ``protocol``: with ``xid``, an Xid 79 line injected
+    through ``manager request`` until the fleet pane shows the Unhealthy
+    transition; then ``manager request <id> states`` MANAGER_STATES_ASKS
+    times, each answer the child's stores read around it."""
+    from gpud_tpu_torch.client.v1 import Client
+
+    machine = f"{MANAGER_AGENT}-{protocol}"
+    cw = w / f"agent_{protocol}"
+    cw.mkdir()
+    (cw / "kmsg").touch()
+    v2_target = f"http://127.0.0.1:{mgr.grpc_port}" if protocol == "v2" else ""
+    code = child_code(session_child, call="{'session_child': session_child(*sys.argv[1:])}")
+    env = dict(os.environ, TPUD_NATIVE_LIB=str(lib))
+    for k in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
+        env.pop(k, None)
+    out_path, err_path = cw / "child.out", cw / "child.err"
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(cw), mgr.endpoint, protocol,
+                                 v2_target, machine, BOOT_TOKEN, FRESH_TOKEN], cwd=ROOT, env=env,
+                                stdout=out_f, stderr=err_f)
+    client = Client(mgr.endpoint, timeout=30)
+    rec = {"protocol": protocol, "machine_id": machine}
+    try:
+        deadline = time.perf_counter() + 90
+        while not (cw / "connected").exists():
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the {protocol} daemon never enrolled: "
+                                     f"{err_path.read_text()[-4000:]}")
+            time.sleep(0.05)
+        machines = {m["machine_id"]: m for m in client._req("GET", "/v1/machines")["machines"]}
+        want = "v1" if protocol == "v1" else "v2-rev3"
+        if machines.get(machine, {}).get("transport") != want:
+            raise AssertionError(f"manager machines: {machines}")
+        if xid:
+            t_inject = time.perf_counter()
+            inj, _ = manager_cli("manager", "request", machine, "injectFault", "--endpoint",
+                                 mgr.endpoint, "--params", json.dumps({"kernel_message": XID79}))
+            if inj["response"].get("status") != "ok":
+                raise AssertionError(f"injectFault: {inj}")
+
+            def in_pane():
+                roll = client._req("GET", "/v1/fleet/rollup")
+                if not roll["unhealthy_series"]:
+                    return None
+                page = client._req("GET", "/v1/fleet/agents", params={"limit": 500})
+                mine = next((a for a in page["agents"] if a["agent"] == machine), None)
+                series = (mine or {}).get("components", {}).get(ERR_KMSG)
+                return series if series and series["state"] == "Unhealthy" else None
+
+            deadline = time.perf_counter() + MANAGER_WAIT_S
+            while (series := in_pane()) is None:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"the Xid's transition never reached the fleet pane")
+                time.sleep(0.05)
+            rec["inject_to_pane_ms"] = (time.perf_counter() - t_inject) * 1e3
+            rec["pane_series"] = series
+        answers, cli_ms = [], []
+        for _ in range(MANAGER_STATES_ASKS):
+            got, ms = manager_cli("manager", "request", machine, "states", "--endpoint",
+                                  mgr.endpoint)
+            answers.append(got["response"])
+            cli_ms.append(ms)
+        rec["states_cli_ms"] = cli_ms
+        (cw / "done").write_text("1")
+        rc = proc.wait(timeout=120)
+    finally:
+        client.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = out_path.read_text().splitlines()
+    if rc != 0 or not out:
+        sys.stderr.write(err_path.read_text()[-8000:])
+        raise AssertionError(f"the {protocol} daemon child exited {rc}")
+    child = json.loads(out[-1])["session_child"]
+    filed = [child["answers"].get(f"unprobed-states-{k}") for k in range(MANAGER_STATES_ASKS)]
+    bad = [k for k, (a, f) in enumerate(zip(answers, filed))
+           if f is None or f["answer"] != a or not f["stores"]]
+    if bad or len(child["answers"]) != MANAGER_STATES_ASKS:
+        raise AssertionError(f"states answers {bad} differ from the {protocol} child's stores "
+                             f"({len(child['answers'])} filed)")
+    if xid and (child["transitions"] != [["Healthy", "Unhealthy"]]
+                or child["audit"] != [["reboot_system", "dry_run", "dry_run"]]
+                or child["executor_calls"]):
+        raise AssertionError(f"the Xid: {child['transitions']}, {child['audit']}, "
+                             f"{child['executor_calls']}")
+    if child["torch_loaded"]:
+        raise AssertionError(f"the {protocol} daemon child loaded {child['torch_loaded']}")
+    rec.update(enroll_ms=child["connect_ms"], active_protocol=child["active_protocol"],
+               acked_seq=child["outbox"]["acked_seq"],
+               journal={row[3]: row[0] for row in child["journal"]},
+               transitions=child["transitions"], audit=child["audit"],
+               executor_calls=child["executor_calls"])
+    return rec
+
+
+def journal_gates(db_path: Path, agents: list) -> dict:
+    """Zero loss in the manager's journal: every fleet agent's 120 rows and
+    every record each daemon child had acked."""
+    con = sqlite3.connect(str(db_path))
+    try:
+        per_agent = dict(con.execute(
+            "SELECT agent, COUNT(*) FROM tpud_fleet_journal_v0_1 GROUP BY agent"))
+        keys = {a["machine_id"]: {k for (k,) in con.execute(
+            "SELECT dedupe_key FROM tpud_fleet_journal_v0_1 WHERE agent = ?", (a["machine_id"],))}
+                for a in agents}
+        rows = con.execute("SELECT COUNT(*) FROM tpud_fleet_journal_v0_1").fetchone()[0]
+    finally:
+        con.close()
+    fleet = {a: n for a, n in per_agent.items() if a.startswith("sock-")}
+    fleet_rows = MANAGER_AGENTS * MANAGER_RECORDS_PER_AGENT
+    daemon_rows = sum(per_agent.get(a["machine_id"], 0) for a in agents)
+    lost = {a["machine_id"]: sorted(k for k, seq in a["journal"].items()
+                                    if seq <= a["acked_seq"] and k not in keys[a["machine_id"]])
+            for a in agents}
+    if len(fleet) != MANAGER_AGENTS or set(fleet.values()) != {MANAGER_RECORDS_PER_AGENT} or \
+            rows != fleet_rows + daemon_rows or any(lost.values()) or \
+            not set(per_agent) - set(fleet) <= {a["machine_id"] for a in agents}:
+        raise AssertionError(f"journal: {rows} rows, {len(fleet)} fleet agents "
+                             f"({set(fleet.values())} rows each), daemon rows {daemon_rows}, "
+                             f"acked but missing {lost}")
+    return {"rows": rows, "fleet_rows": fleet_rows, "daemon_rows": daemon_rows,
+            "daemon_acked": {a["machine_id"]: a["acked_seq"] for a in agents}}
+
+
+def serial_rebuild(db_path: Path, expected: dict) -> float:
+    """The journal replayed here, serially at MANAGER_SHARDS; its operator
+    view must equal what the manager served before its SIGTERM. Returns
+    the rebuild's seconds."""
+    from gpud_tpu_torch.manager.rollup import FleetRollupStore
+
+    db = DB(str(db_path))
+    try:
+        st = FleetRollupStore(db, None, shard_count=MANAGER_SHARDS, rebuild_parallel=False)
+        roll = dict(st.fleet_rollup())
+        for k in ("generation", "duplicates_suppressed"):
+            roll.pop(k)
+        agents, offset = [], 0
+        while offset is not None:
+            page = st.agents_page(offset, 500)
+            agents.extend(page["agents"])
+            offset = page["next_offset"]
+        # the HTTP answers went through JSON: compare in that form
+        if json.loads(json.dumps({"rollup": roll, "agents": agents})) != expected:
+            raise AssertionError("manager: the serial rebuild differs from the served view")
+        return st.last_rebuild_seconds
+    finally:
+        db.close()
+
+
+def fs_type(path: Path) -> str:
+    """The filesystem type /proc/mounts gives the mount holding ``path``."""
+    best, kind = "", "unknown"
+    for row in Path("/proc/mounts").read_text().splitlines():
+        parts = row.split()
+        mount = parts[1]
+        inside = str(path) == mount or str(path).startswith(mount.rstrip("/") + "/")
+        if inside and len(mount) >= len(best):
+            best, kind = mount, parts[2]
+    return kind
+
+
+def manager_data_root(workdir: Path) -> Path:
+    """Where the manager keeps its journal: a local filesystem. The card's
+    container mounts its root (and so the checkout) over 9p, where SQLite's
+    commits fell so far behind a 245,760-record burst that the writer's
+    bounded queue dropped acked records (ROADMAP C12); /dev/shm is its one
+    local filesystem (tmpfs)."""
+    shm = Path("/dev/shm")
+    if fs_type(workdir) == "9p" and fs_type(shm) == "tmpfs" and os.access(shm, os.W_OK):
+        return shm
+    return workdir
+
+
+def phase_manager(workdir: Path, smi_line: str, lib: Path) -> dict:
+    """The manager tier on the card's host: ``python -m gpud_tpu_torch
+    manager serve`` as a child, the session phase's daemon enrolled over v1
+    (an Xid 79 into the fleet pane) and v2, the reference's fleet load over
+    the v2 tunnel, every operator route, SIGTERM, a restart over the same
+    journal and its rebuilds; gated on zero loss and identical views."""
+    t_phase = time.perf_counter()
+    w = workdir / "manager"
+    w.mkdir()
+    data_root = Path(tempfile.mkdtemp(prefix="chip_smoke_manager_", dir=manager_data_root(w)))
+    try:
+        return manager_run(w, data_root / "data", smi_line, lib, t_phase)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+
+
+def manager_run(w: Path, data_dir: Path, smi_line: str, lib: Path, t_phase: float) -> dict:
+    from gpud_tpu_torch.client.v1 import Client
+    from gpud_tpu_torch.session import wire
+    from gpud_tpu_torch.session.v2 import session_pb2 as pb
+
+    rec: dict = {"card": smi_line, "agents": MANAGER_AGENTS,
+                 "records_per_agent": MANAGER_RECORDS_PER_AGENT, "batch": MANAGER_BATCH,
+                 "shards": MANAGER_SHARDS, "senders": MANAGER_SENDERS,
+                 "journal_fs": fs_type(data_dir.parent), "workdir_fs": fs_type(w)}
+    mgr = ManagerChild(w, data_dir, "first")
+    try:
+        rec["ready_s"] = mgr.ready_s
+        rec["vmrss_ready_mb"] = mgr.vmrss_mb()
+        line("manager", f"manager pid {mgr.proc.pid} ready in {mgr.ready_s:.3f} s at "
+                        f"{mgr.endpoint} (grpc {mgr.grpc_port}); VmRSS {rec['vmrss_ready_mb']:.1f} "
+                        f"MB; journal on {rec['journal_fs']} (the workdir on {rec['workdir_fs']})")
+        daemons = [enroll_daemon(w, mgr, "v1", lib, xid=True),
+                   enroll_daemon(w, mgr, "v2", lib, xid=False)]
+        rec["enroll_ms"] = {d["protocol"]: d["enroll_ms"] for d in daemons}
+        rec["inject_to_pane_ms"] = daemons[0]["inject_to_pane_ms"]
+        rec["states_cli_ms"] = {d["protocol"]: d["states_cli_ms"] for d in daemons}
+        line("manager", f"daemon enrolled over v1 in {rec['enroll_ms']['v1']:.1f} ms and v2 in "
+                        f"{rec['enroll_ms']['v2']:.1f} ms; the Xid 79 in the fleet pane "
+                        f"{rec['inject_to_pane_ms']:.1f} ms after 'manager request injectFault'; "
+                        f"{MANAGER_STATES_ASKS} 'manager request states' per protocol equal to "
+                        f"the daemon's stores")
+
+        t_enc = time.perf_counter()
+        work = fleet_frames(pb, wire, time.time())
+        rec["encode_s"] = time.perf_counter() - t_enc
+        rec["vmrss_before_load_mb"] = mgr.vmrss_mb()
+        load = drive_fleet(mgr.grpc_port, work, mgr.endpoint)
+        del work
+        rec["vmrss_after_load_mb"] = mgr.vmrss_mb()
+        rec["ingest_records_per_s"] = load["records_per_s"]
+        rec["ingest_s"] = load["elapsed_s"]
+        rec["rollup_cold_p95_ms"] = statistics.quantiles(load["cold_ms"], n=20)[-1] \
+            if len(load["cold_ms"]) >= 2 else max(load["cold_ms"])
+        rec["cold_reads"] = len(load["cold_ms"])
+
+        client = Client(mgr.endpoint, timeout=30)
+        routes = {"/v1/machines": None, "/v1/fleet/rollup": None, "/v1/fleet/fabric": None,
+                  "/v1/fleet/predict": None, "/v1/fleet/agents": {"limit": 100},
+                  "/v1/fleet/agents/sock-0000/history": None,
+                  "/v1/fleet/traces": {"correlation_id": MANAGER_CID}, "/metrics": None}
+        ms, bodies = {}, {}
+        for path, params in routes.items():
+            took = []
+            for _ in range(MANAGER_REPS):
+                t0 = time.perf_counter()
+                bodies[path] = client._req("GET", path, params=params)
+                took.append((time.perf_counter() - t0) * 1e3)
+            ms[path] = [statistics.median(took), max(took)]
+        rec["route_ms_p50_max"] = ms
+        client._req("GET", "/v1/fleet/rollup")  # a miss fills the cache (2 s TTL)
+        cached = []
+        for _ in range(MANAGER_REPS):
+            t0 = time.perf_counter()
+            client._req("GET", "/v1/fleet/rollup")
+            cached.append((time.perf_counter() - t0) * 1e3)
+        rec["rollup_cached_p95_ms"] = statistics.quantiles(cached, n=20)[-1]
+        roll = bodies["/v1/fleet/rollup"]
+        fleet_total = MANAGER_AGENTS * MANAGER_RECORDS_PER_AGENT
+        # a daemon that shipped no record is no agent of the rollup
+        if not MANAGER_AGENTS <= roll["agents"] <= MANAGER_AGENTS + len(daemons) or \
+                roll["records_by_kind"].get("transition", 0) < fleet_total:
+            raise AssertionError(f"manager rollup: {roll}")
+        if bodies["/v1/fleet/traces"]["count"] != 1 or \
+                bodies["/v1/fleet/agents/sock-0000/history"]["total"] != MANAGER_RECORDS_PER_AGENT:
+            raise AssertionError("manager: traces or history")
+        metrics = bodies["/metrics"]
+        shard_rows = [r for r in metrics.splitlines() if r.startswith("tpud_fleet_shard_records{")]
+        if len(shard_rows) != MANAGER_SHARDS or \
+                f'tpud_fleet_agent_transitions{{agent="sock-0000"}} {MANAGER_RECORDS_PER_AGENT}' \
+                not in metrics:
+            raise AssertionError(f"manager /metrics: shard rows {shard_rows}")
+        view = fleet_view(client)
+        client.close()
+        rec["dirty_mb"] = mgr.dirty_mb()
+        rec["threads"] = len(os.listdir(f"/proc/{mgr.proc.pid}/task"))
+        torch_maps = mgr.mapped_torch()
+        rc, rec["sigterm_s"], report = mgr.terminate()
+    finally:
+        mgr.kill()
+    if rc != 0 or report is None:
+        raise AssertionError(f"manager: SIGTERM exit {rc}, report {report}: {mgr.log()}")
+    ex = report["executor"]
+    rec["reader_stall_p95_ms"] = ex["submit_p95_ms"]
+    rec["executor"] = {k: ex[k] for k in ("accepted", "dropped", "errors")}
+    # the writer's dropped_ops counts the ops its full queue refused; the
+    # store hands those over again after a drain (ROADMAP C12), so the
+    # journal below, not this count, is the zero-loss gate
+    rec["writer"] = report["writer"]
+    if report["torch_loaded"] or torch_maps or sum(ex["dropped"]) or ex["errors"]:
+        raise AssertionError(f"manager: torch {report['torch_loaded']} {torch_maps}, executor "
+                             f"{ex}, writer {report['writer']}")
+    rec["journal"] = journal_gates(data_dir / "fleet.db", daemons)
+
+    # the restart re-partitions the journal over MANAGER_RESTART_SHARDS
+    # shards, rebuilt in parallel (the reference's default: one fetch
+    # worker per shard, up to the cores); here it is replayed serially at
+    # MANAGER_SHARDS. Both must give the view served before the SIGTERM
+    mgr2 = ManagerChild(w, data_dir, "restart", shards=MANAGER_RESTART_SHARDS)
+    try:
+        rec["restart_ready_s"] = mgr2.ready_s
+        client = Client(mgr2.endpoint, timeout=30)
+        after = fleet_view(client)
+        client.close()
+        rc2, rec["restart_sigterm_s"], report2 = mgr2.terminate()
+    finally:
+        mgr2.kill()
+    if rc2 != 0 or after != view or report2 is None:
+        raise AssertionError(f"manager: the restarted manager's view differs (exit {rc2})")
+    rec["rebuild_s"] = {
+        f"parallel_{MANAGER_RESTART_SHARDS}_shards": report2["rebuild"]["seconds"],
+        f"serial_{MANAGER_SHARDS}_shards": serial_rebuild(data_dir / "fleet.db", view)}
+    if not report2["rebuild"]["parallel"] or report2["rebuild"]["shards"] != MANAGER_RESTART_SHARDS:
+        raise AssertionError(f"manager: the restart rebuilt {report2['rebuild']}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    line("manager", f"fleet load: {load['records']} records from {MANAGER_AGENTS} agents in "
+                    f"{load['elapsed_s']:.3f} s ({load['records_per_s']:.1f} records/s; frames "
+                    f"encoded beforehand in {rec['encode_s']:.2f} s), every agent acked to its "
+                    f"last seq; rollup p95 cold {rec['rollup_cold_p95_ms']:.2f} ms over "
+                    f"{rec['cold_reads']} reads under load, cached "
+                    f"{rec['rollup_cached_p95_ms']:.2f} ms; reader stall p95 "
+                    f"{rec['reader_stall_p95_ms']:.4f} ms; journal {rec['journal']['rows']} rows "
+                    f"= {rec['journal']['fleet_rows']} + {rec['journal']['daemon_rows']} from "
+                    f"the daemon")
+    line("manager", f"[p50, max] ms by route "
+                    f"{json.dumps({k: [round(v[0], 3), round(v[1], 3)] for k, v in ms.items()})}")
+    line("manager", f"VmRSS {rec['vmrss_before_load_mb']:.1f} -> {rec['vmrss_after_load_mb']:.1f} "
+                    f"MB over the load, dirtied {rec['dirty_mb']:.1f} MB, {rec['threads']} threads, "
+                    f"no torch; SIGTERM exit 0 in {rec['sigterm_s']:.3f} s; restarted over the "
+                    f"journal at {MANAGER_RESTART_SHARDS} shards, ready in "
+                    f"{rec['restart_ready_s']:.3f} s with an identical view; rebuild s "
+                    f"{json.dumps({k: round(v, 3) for k, v in rec['rebuild_s'].items()})}, "
+                    f"each view identical; phase {rec['phase_s']:.1f} s")
+    print(json.dumps({"manager": rec}), flush=True)
+    return rec
+
 # -- 8. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
@@ -3883,6 +4500,7 @@ def main() -> int:
         planes_on_peak = daemon["steady"]["vmrss_peak_sampled_mb"]
         phase_session(workdir, smi, planes_on_peak)
         phase_server(workdir, smi, planes_on_peak, workdir / "native" / native.LIB_NAME)
+        phase_manager(workdir, smi, workdir / "native" / native.LIB_NAME)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()

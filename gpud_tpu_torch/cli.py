@@ -31,6 +31,15 @@ enrolls with a control plane and installs the systemd unit
 (``gpud_tpu_torch/manager/systemd.py``), ``down`` removes it. Each has
 ``tpud``'s flags, output, ``--json`` schema and exit codes, in the port's
 nouns (``--gpu-id``, Xid error names).
+
+``manager serve`` runs the fleet manager (``gpud_tpu_torch/manager/
+control_plane.py``: v1 on ``--port``, v2 on ``--grpc-port``, the journal
+in ``--data-dir``, ``--shards`` ingest shards) and prints its endpoint as
+one JSON line; ``manager machines`` and ``manager request ID METHOD``, and
+``fleet rollup|fabric|predict|agents|peers|history|traces``, ask a running
+manager over its operator API (``--endpoint``, ``--admin-token``), with
+``tpud``'s output, error text and exit codes. The federation flags of
+``tpud manager serve`` and ``fleet agents --peer`` are not ported.
 """
 
 from __future__ import annotations
@@ -767,6 +776,130 @@ def cmd_down(args) -> int:
     return 0
 
 
+def cmd_manager(args) -> int:
+    """Standalone dev control plane (manager/control_plane.py): serve a
+    manager process, or drive one over its operator API."""
+    if args.manager_cmd == "serve":
+        import threading
+
+        from gpud_tpu_torch.manager.control_plane import ControlPlane
+
+        cp = ControlPlane(
+            port=args.port,
+            grpc_port=args.grpc_port,
+            session_token=args.session_token or None,
+            admin_token=args.admin_token or None,
+            data_dir=args.data_dir or None,
+            shards=args.shards or None,
+        )
+        # handlers go in before the endpoint line: the printed JSON is the
+        # readiness contract, and a supervisor may SIGTERM immediately after
+        # reading it — the default disposition in that window would kill us
+        # with a nonzero status
+        stop = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+        cp.start()
+        print(
+            json.dumps(
+                {
+                    "endpoint": cp.endpoint,
+                    "grpc_port": cp.grpc_port,
+                    "instance_id": cp.instance_id,
+                }
+            ),
+            flush=True,
+        )
+        stop.wait()
+        cp.stop()
+        return 0
+
+    # operator subcommands speak the manager's HTTP API
+    try:
+        return _manager_operator_cmd(args)
+    except Exception as e:  # noqa: BLE001 - CLI boundary: no tracebacks
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+def _operator_client(args, timeout: float):
+    """The SDK on a manager's operator API (``--endpoint``, with the admin
+    bearer when ``--admin-token``)."""
+    from gpud_tpu_torch.client.v1 import Client
+
+    return Client(base_url=args.endpoint, timeout=timeout, admin_token=args.admin_token)
+
+
+def cmd_fleet(args) -> int:
+    """Fleet observability against a manager's operator API: rollup
+    aggregates, paginated per-agent views, journaled history, and
+    correlation-id trace stitching (docs/fleet.md)."""
+    from gpud_tpu_torch.client.v1 import ClientError
+
+    try:
+        c = _operator_client(args, 30)
+        if args.fleet_cmd == "rollup":
+            data = c.get_fleet_rollup()
+        elif args.fleet_cmd == "fabric":
+            data = c.get_fleet_fabric(args.since or None)
+        elif args.fleet_cmd == "predict":
+            data = c.get_fleet_predict(args.top)
+        elif args.fleet_cmd == "agents":
+            data = c.get_fleet_agents(args.offset, args.limit)
+        elif args.fleet_cmd == "history":
+            data = c.get_fleet_history(args.machine_id, since=args.since or None,
+                                       limit=args.limit, offset=args.offset)
+        elif args.fleet_cmd == "traces":
+            data = c.get_fleet_traces(args.correlation_id)
+        elif args.fleet_cmd == "peers":
+            data = c.get_fleet_peers()
+        else:
+            return 2
+    except ClientError as e:
+        print(f"error {e.status}: {e.body}", file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001 - CLI boundary: no tracebacks
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(data, indent=2))
+    return 0
+
+
+def _manager_operator_cmd(args) -> int:
+    from gpud_tpu_torch.client.v1 import ClientError
+
+    if args.manager_cmd == "machines":
+        try:
+            data = _operator_client(args, 10)._req("GET", "/v1/machines")
+        except ClientError as e:
+            print(f"error {e.status}: {e.body}", file=sys.stderr)
+            return 1
+        print(json.dumps(data, indent=2))
+        return 0
+    if args.manager_cmd == "request":
+        body = {}
+        if args.params:
+            params = json.loads(args.params)
+            if not isinstance(params, dict):
+                print("--params must be a JSON object", file=sys.stderr)
+                return 2
+            body.update(params)
+        # the positional method always wins over a "method" key smuggled
+        # into --params
+        body["method"] = args.method
+        try:
+            data = _operator_client(args, args.timeout + 10)._req(
+                "POST", f"/v1/machines/{args.machine_id}/request",
+                params={"timeout": str(args.timeout)}, body=body,
+            )
+        except ClientError as e:
+            print(f"error {e.status}: {e.body}", file=sys.stderr)
+            return 1
+        print(json.dumps(data, indent=2))
+        return 0
+    return 2
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gpud_tpu_torch",
@@ -992,6 +1125,87 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common_flags(pn)
     pn.add_argument("phase", choices=["startup", "shutdown"])
     pn.set_defaults(fn=cmd_notify, audited=True)
+
+    pmg = sub.add_parser(
+        "manager", help="standalone dev control plane (serve / drive)"
+    )
+    msub = pmg.add_subparsers(dest="manager_cmd", required=True)
+    ms = msub.add_parser("serve", help="run a manager process")
+    ms.add_argument("--port", type=int, default=15135)
+    ms.add_argument("--grpc-port", type=int, default=15136)
+    ms.add_argument("--session-token", default="")
+    ms.add_argument("--admin-token", default="")
+    ms.add_argument("--data-dir", default="",
+                    help="persist the fleet rollup journal here "
+                         "(default: in-memory)")
+    ms.add_argument("--shards", type=int, default=0,
+                    help="ingest/rollup shard count "
+                         "(default: 8; agents hash to shards by stable "
+                         "crc32 slots, so this is safe to change between "
+                         "restarts)")
+    ms.set_defaults(fn=cmd_manager)
+    mm = msub.add_parser("machines", help="list connected agents")
+    mm.add_argument("--endpoint", default="http://127.0.0.1:15135")
+    mm.add_argument("--admin-token", default="")
+    mm.set_defaults(fn=cmd_manager)
+    mr = msub.add_parser("request", help="issue one request to an agent")
+    mr.add_argument("machine_id")
+    mr.add_argument("method")
+    mr.add_argument("--params", default="", help="JSON object of parameters")
+    mr.add_argument("--endpoint", default="http://127.0.0.1:15135")
+    mr.add_argument("--admin-token", default="")
+    mr.add_argument("--timeout", type=float, default=30.0)
+    mr.set_defaults(fn=cmd_manager)
+
+    pfl = sub.add_parser(
+        "fleet", help="fleet observability via a manager's operator API"
+    )
+    fsub = pfl.add_subparsers(dest="fleet_cmd", required=True)
+
+    def _fleet_common(sp) -> None:
+        sp.add_argument("--endpoint", default="http://127.0.0.1:15135")
+        sp.add_argument("--admin-token", default="")
+        sp.set_defaults(fn=cmd_fleet)
+
+    fr = fsub.add_parser("rollup", help="fleet-wide rollup aggregates")
+    _fleet_common(fr)
+    ff = fsub.add_parser(
+        "fabric", help="fleet-wide NVLink matrix: degraded links since ts"
+    )
+    ff.add_argument("--since", type=float, default=0.0,
+                    help="unix-timestamp floor for degraded-since")
+    _fleet_common(ff)
+    fp = fsub.add_parser(
+        "predict",
+        help="fleet-ranked predictive pane: top-K series by decayed risk",
+    )
+    fp.add_argument("--top", type=int, default=20,
+                    help="how many ranked (agent, component) rows")
+    _fleet_common(fp)
+    fa = fsub.add_parser("agents", help="paginated per-agent rollups")
+    fa.add_argument("--offset", type=int, default=0)
+    fa.add_argument("--limit", type=int, default=100)
+    _fleet_common(fa)
+    fpe = fsub.add_parser(
+        "peers",
+        help="the manager peer map: ring, health, rendezvous cohorts, "
+             "replication watermarks",
+    )
+    _fleet_common(fpe)
+    fh = fsub.add_parser(
+        "history", help="one agent's journaled records, newest first"
+    )
+    fh.add_argument("machine_id")
+    fh.add_argument("--since", type=float, default=0.0,
+                    help="unix-timestamp floor")
+    fh.add_argument("--offset", type=int, default=0)
+    fh.add_argument("--limit", type=int, default=100)
+    _fleet_common(fh)
+    ft = fsub.add_parser(
+        "traces", help="fleet records stitched to one check's trace"
+    )
+    ft.add_argument("correlation_id")
+    _fleet_common(ft)
     return p
 
 
@@ -1013,3 +1227,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             except OSError:
                 pass  # unwritable data dir: act unaudited rather than fail
     return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,3 +1,3 @@
-"""The agent's side of the fleet manager's packages (the port of
-``gpud_tpu/manager/packages.py``); the manager tier itself is not ported
-yet."""
+"""The fleet manager tier (the port of ``gpud_tpu/manager/``): the control
+plane, the sharded fleet rollup store and its exposition, and the agent's
+side of the manager's packages. Peer federation is not ported yet."""

@@ -29,16 +29,24 @@ the per-request metrics and trace record (the reference's
 ``Request`` and return a ``Response``; the server (``server.py``) runs each
 connection on its own thread, so a handler blocks where the reference's
 awaits its executor.
+
+``App`` also serves another route table (``App(routes=...)``, as the
+manager's ``manager/control_plane.py`` does): a path may hold
+``{name}`` segments, matched as aiohttp's router matches them and handed
+to the handler in ``Request.match_info``. A route with ``stream_body``
+reads its request body itself from ``Request.stream``, and a ``Response``
+with ``chunks`` is sent chunked, one chunk per item, as aiohttp's
+``StreamResponse`` sends each ``write``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import time
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Callable, Dict, List
+from typing import TYPE_CHECKING, BinaryIO, Callable, Dict, Iterable, List, Mapping, Optional
 
-from gpud_tpu_torch import machine_info as machineinfo
 from gpud_tpu_torch.api.v1.types import (
     ComponentEvents,
     ComponentHealthStates,
@@ -46,7 +54,6 @@ from gpud_tpu_torch.api.v1.types import (
     ComponentMetrics,
     HealthState,
 )
-from gpud_tpu_torch.fault_injector import Request as InjectRequest
 from gpud_tpu_torch.log import get_logger
 from gpud_tpu_torch.metrics.registry import counter, histogram
 from gpud_tpu_torch.tracing import DEFAULT_TRACER
@@ -67,14 +74,10 @@ PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 DEFAULT_TRACES_LIMIT = 256
 
-_h_http = histogram(
-    "tpud_http_request_duration_seconds",
-    "HTTP API request latency by route and method",
-)
-_c_http = counter(
-    "tpud_http_requests_total",
-    "HTTP API requests by route, method and status code",
-)
+HTTP_DURATION = ("tpud_http_request_duration_seconds",
+                 "HTTP API request latency by route and method")
+HTTP_REQUESTS = ("tpud_http_requests_total",
+                 "HTTP API requests by route, method and status code")
 
 UNMATCHED = "unmatched"
 
@@ -85,6 +88,9 @@ class Request:
     path: str
     query: Dict[str, str] = field(default_factory=dict)  # first value per key
     body: bytes = b""
+    headers: Mapping[str, str] = field(default_factory=dict)  # case-insensitive from the server
+    match_info: Dict[str, str] = field(default_factory=dict)  # the path's {name} segments
+    stream: Optional[BinaryIO] = None  # the unread body, for a ``stream_body`` route
 
     def json(self):
         """The body as JSON; raises ``json.JSONDecodeError`` or
@@ -98,6 +104,7 @@ class Response:
     body: bytes = b""
     content_type: str = "application/json; charset=utf-8"
     headers: Dict[str, str] = field(default_factory=dict)
+    chunks: Optional[Iterable[bytes]] = None  # sent chunked in place of ``body``
 
 
 class HTTPError(Exception):
@@ -114,6 +121,25 @@ class Route:
     path: str
     handler: Callable[[Request], Response]
     summary: str
+    stream_body: bool = False
+
+
+# aiohttp's dynamic segment: ``{name}`` matches one non-empty path segment
+_SEGMENT = re.compile(r"\{([A-Za-z_][A-Za-z0-9_]*)\}")
+
+
+def _template(path: str):
+    """The compiled pattern of a route path with ``{name}`` segments, or
+    None for a plain path."""
+    if "{" not in path:
+        return None
+    out, pos = [], 0
+    for m in _SEGMENT.finditer(path):
+        out.append(re.escape(path[pos:m.start()]))
+        out.append(f"(?P<{m.group(1)}>[^{{}}/]+)")
+        pos = m.end()
+    out.append(re.escape(path[pos:]))
+    return re.compile("".join(out) + r"\Z")
 
 
 def _json(data, status: int = 200) -> Response:
@@ -145,6 +171,8 @@ def _qfloat(req: Request, key: str, default: float) -> float:
 def build_routes(srv: "Server") -> List[Route]:
     """The route table, in the reference's registration order
     (app.py:607-672): the pprof routes first when ``config.pprof``."""
+    from gpud_tpu_torch import machine_info as machineinfo
+    from gpud_tpu_torch.fault_injector import Request as InjectRequest
 
     def healthz(_req: Request) -> Response:
         return _json({"status": "ok", "version": srv.version})
@@ -655,31 +683,53 @@ class App:
     """Dispatch over the route table, with the reference's middleware:
     latency and count by route template and method (unmatched paths and
     wrong methods collapse into one ``unmatched`` label, so a probe mints
-    no series) and one ``http.request`` trace record per request."""
+    no series) and one ``http.request`` trace record per request. The
+    daemon's table is ``build_routes(srv)``; ``routes`` serves another,
+    and ``observe=False`` leaves the middleware out, as an aiohttp app
+    built without it."""
 
-    def __init__(self, srv: "Server") -> None:
-        self.routes = build_routes(srv)
+    def __init__(self, srv: Optional["Server"] = None, *,
+                 routes: Optional[List[Route]] = None, observe: bool = True) -> None:
+        self.routes = build_routes(srv) if routes is None else list(routes)
+        self.observe = observe
+        # the middleware's families exist in a process that serves with it
+        # (the daemon's), and in no other (the manager's, as the reference's)
+        if observe:
+            self._h_http = histogram(*HTTP_DURATION)
+            self._c_http = counter(*HTTP_REQUESTS)
         self._by_path: Dict[str, Dict[str, Route]] = {}
         for r in self.routes:
             self._by_path.setdefault(r.path, {})[r.method] = r
+        # dynamic paths, tried in registration order after the plain ones
+        self._templates = [(_template(p), p) for p in self._by_path if "{" in p]
+
+    def _match(self, path: str):
+        if "{" not in path and path in self._by_path:
+            return self._by_path[path], {}
+        for pattern, template in self._templates:
+            m = pattern.match(path)
+            if m is not None:
+                return self._by_path[template], m.groupdict()
+        return None, {}
 
     def resolve(self, method: str, path: str):
-        """(route, None) for a match, else (None, the error response)."""
-        methods = self._by_path.get(path)
+        """(route, None, the path's {name} segments) for a match, else
+        (None, the error response, {})."""
+        methods, match_info = self._match(path)
         if methods is None:
-            return None, _text("404: Not Found", 404)
+            return None, _text("404: Not Found", 404), {}
         route = methods.get("GET" if method == "HEAD" else method)
         if route is None:
             allowed = set(methods) | ({"HEAD"} if "GET" in methods else set())
             resp = _text("405: Method Not Allowed", 405)
             resp.headers["Allow"] = ",".join(sorted(allowed))
-            return None, resp
-        return route, None
+            return None, resp, {}
+        return route, None, match_info
 
     def handle(self, req: Request) -> Response:
         t0 = time.monotonic()
         start_unix = time.time()
-        route, resp = self.resolve(req.method, req.path)
+        route, resp, req.match_info = self.resolve(req.method, req.path)
         label = route.path if route is not None else UNMATCHED
         try:
             if route is not None:
@@ -693,20 +743,25 @@ class App:
                                  "Server got itself in trouble", 500)
             return resp
         finally:
-            status = resp.status if resp is not None else 500
-            duration = time.monotonic() - t0
-            _h_http.observe(duration, {"route": label, "method": req.method})
-            _c_http.inc(labels={"route": label, "method": req.method, "status": str(status)})
-            # flat record (not the thread-local span stack): the trace
-            # ring's reader pairs nothing across requests
-            DEFAULT_TRACER.record(
-                "http.request",
-                duration,
-                component="http",
-                start_unix=start_unix,
-                status="ok" if status < 500 else "error",
-                attrs={"route": label, "method": req.method, "status": status},
-            )
+            if self.observe:
+                self._observe(req, label, resp, t0, start_unix)
+
+    def _observe(self, req: Request, label: str, resp: Optional[Response], t0: float,
+                 start_unix: float) -> None:
+        status = resp.status if resp is not None else 500
+        duration = time.monotonic() - t0
+        self._h_http.observe(duration, {"route": label, "method": req.method})
+        self._c_http.inc(labels={"route": label, "method": req.method, "status": str(status)})
+        # flat record (not the thread-local span stack): the trace
+        # ring's reader pairs nothing across requests
+        DEFAULT_TRACER.record(
+            "http.request",
+            duration,
+            component="http",
+            start_unix=start_unix,
+            status="ok" if status < 500 else "error",
+            attrs={"route": label, "method": req.method, "status": status},
+        )
 
 
 SELF_COMPONENT = "tpud-self"

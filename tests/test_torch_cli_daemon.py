@@ -6,10 +6,9 @@
 The reference's own tests of these commands run on the port
 (tests/torch_ref_tests.py, with tests/torch_live.py's replacements and
 ``live_server``): tests/test_cli_json_contracts.py, test_cli_matrix.py
-(``up``'s login against the loopback plane of tests/torch_loopback_plane.py,
-where the reference's test uses its manager), test_subprocess_e2e.py
-(``python -m gpud_tpu_torch run`` as a child process, driven by the SDK and
-by the CLI in other processes) and test_systemd_manager.py. Then the port's
+(``up``'s login against the port's manager), test_subprocess_e2e.py
+(``python -m gpud_tpu_torch run`` and ``manager serve`` as child processes,
+driven by the SDK and by the CLI in other processes) and test_systemd_manager.py. Then the port's
 own cases: the scan's ``--json`` schema with the port's ``repair_actions``,
 and each query command's ``--json`` output and exit code equal to the
 reference's against the two servers. Every daemon binds 127.0.0.1."""
@@ -41,16 +40,8 @@ globals().update(port_tests("test_cli_json_contracts.py", replace=REF_TO_PORT + 
     # (tests/test_torch_scan.py): held below with that key
     "test_scan_json_schema",
 ]))
-globals().update(port_tests("test_cli_matrix.py", replace=REF_TO_PORT + [
-    # ``up``'s login is the agent's: the loopback control plane answers it
-    # where the reference's test starts its manager (A10)
-    ("from gpud_tpu_torch.manager.control_plane import ControlPlane",
-     "from torch_loopback_plane import LoopbackPlane as ControlPlane"),
-]))
-globals().update(port_tests("test_subprocess_e2e.py", replace=REF_TO_PORT, exclude=[
-    # ``tpud manager serve`` is the manager tier's (A10)
-    "test_manager_serve_subprocess_lifecycle",
-]))
+globals().update(port_tests("test_cli_matrix.py", replace=REF_TO_PORT))
+globals().update(port_tests("test_subprocess_e2e.py", replace=REF_TO_PORT))
 globals().update(port_tests("test_systemd_manager.py"))
 
 

@@ -458,3 +458,126 @@ def test_the_fabric_knobs_validate_as_the_reference(tmp_path, knob, bad):
         setattr(c, knob, bad)
         got.append(c.validate())
     assert got[0] == got[1] and "fabric" in got[1]
+
+
+# -- the manager's fabric pane (tests/test_fabric.py:299-366) -----------------
+#
+# The reference's rollup cases run on both packages' FleetRollupStore, once
+# with the reference's torus records and once with the port's: an NVLink
+# port's record is ``MeshLink.to_dict()`` (GPU to switch, ``dst_chip`` -1,
+# axis ``nvlink``), with the plane's state, latency, deviation and ts.
+
+
+def torus_rec(seq, ts, link, state, agent_suffix=""):
+    body = {"link": link, "src_chip": 0, "dst_chip": 1, "axis": "x",
+            "state": state, "latency_seconds": 2e-3, "deviation": 5.0, "ts": ts}
+    return (seq, ts, "ici_link", f"ici_link:{agent_suffix}{link}:{ts}", body)
+
+
+def nvlink_rec(seq, ts, link, state, agent_suffix=""):
+    # the torus names map onto ports of GPUs 0 and 1
+    gpu, port = {"c0-c1/x": (0, 3), "c2-c3/x": (1, 17)}.get(link, (0, 0))
+    body = {**MeshLink(gpu, port).to_dict(), "state": state, "latency_seconds": 2e-3,
+            "deviation": 5.0, "ts": ts}
+    name = body["link"]
+    return (seq, ts, "ici_link", f"ici_link:{agent_suffix}{name}:{ts}", body)
+
+
+RECORD_SHAPES = {"torus": torus_rec, "nvlink": nvlink_rec}
+
+
+def rollup_answers_since(P, tmp, rec):
+    db = P.sqlite.DB(str(tmp / f"{P.name}-since.db"))
+    st = P.rollup.FleetRollupStore(db, None)
+    st.ingest("agent-a", [rec(1, 100.0, "c0-c1/x", STATE_DEGRADED),
+                          rec(2, 110.0, "c0-c1/x", STATE_UP),       # recovered
+                          rec(3, 120.0, "c2-c3/x", STATE_DOWN)])   # still down
+    st.ingest("agent-b", [rec(1, 130.0, "c0-c1/x", STATE_DOWN)])
+    pane = st.fleet_fabric(since=0.0, now=200.0)
+    assert pane["agents"] == 2 and pane["links_total"] == 3
+    assert len(pane["degraded"]) == 3
+    assert pane["degraded"][0]["state"] == STATE_DOWN
+    later = st.fleet_fabric(since=115.0, now=200.0)
+    assert len(later["degraded"]) == 2
+    snap = st.agent_snapshot("agent-a")
+    assert snap["records_by_kind"]["ici_link"] == 3
+    out = (pane, later, snap)
+    db.close()
+    return out
+
+
+def rollup_dedupes_redelivery(P, tmp, rec):
+    db = P.sqlite.DB(str(tmp / f"{P.name}-dedupe.db"))
+    st = P.rollup.FleetRollupStore(db, None)
+    r = rec(1, 100.0, "c0-c1/x", STATE_DOWN)
+    fresh = [st.ingest("agent-a", [r]), st.ingest("agent-a", [r])]  # redelivery
+    assert st.records_total() == 1
+    pane = st.fleet_fabric(now=200.0)
+    assert pane["degraded"][0]["records"] == 1
+    db.close()
+    return fresh, pane
+
+
+def rollup_survives_replay(P, tmp, rec):
+    db = P.sqlite.DB(str(tmp / f"{P.name}-replay.db"))
+    st = P.rollup.FleetRollupStore(db, None)
+    st.ingest("agent-a", [rec(1, 100.0, "c0-c1/x", STATE_DOWN)])
+    before = st.fleet_fabric(now=200.0)
+    after = P.rollup.FleetRollupStore(db, None).fleet_fabric(now=200.0)
+    # equal but for the store-local generation counter
+    before.pop("generation")
+    after.pop("generation")
+    assert after == before
+    db.close()
+    return after
+
+
+def rollup_ignores_empty_link(P, tmp, rec):
+    db = P.sqlite.DB(str(tmp / f"{P.name}-empty.db"))
+    st = P.rollup.FleetRollupStore(db, None)
+    st.ingest("agent-a", [(1, 100.0, "ici_link", "ici_link::100", {"link": "", "state": "down"})])
+    assert st.fleet_fabric()["links_total"] == 0
+    assert P.rollup.MAX_LINKS_PER_AGENT >= 1024
+    out = st.fleet_fabric(now=200.0), st.agent_snapshot("agent-a")
+    db.close()
+    return out
+
+
+ROLLUP_CASES = {
+    "answers_since": rollup_answers_since,
+    "dedupes_redelivery": rollup_dedupes_redelivery,
+    "survives_journal_replay": rollup_survives_replay,
+    "ignores_empty_link": rollup_ignores_empty_link,
+}
+
+
+@pytest.mark.parametrize("shape", RECORD_SHAPES)
+@pytest.mark.parametrize("case", ROLLUP_CASES)
+def test_the_fleet_fabric_pane_is_the_reference_s(case, shape, tmp_path):
+    ref, port = both(ROLLUP_CASES[case], tmp_path, RECORD_SHAPES[shape])
+    assert port == ref
+
+
+def fold_src_chip(P, tmp):
+    """A reference quirk the port keeps (ROADMAP §C):
+    ``_LinkRollup.apply`` reads ``int(body.get("src_chip", ...) or -1)``,
+    so a link of GPU 0 (or TPU chip 0) is reported with ``src_chip`` -1."""
+    db = P.sqlite.DB(str(tmp / f"{P.name}-fold.db"))
+    st = P.rollup.FleetRollupStore(db, None)
+    recs = []
+    for seq, gpu in enumerate((0, 1, 7), start=1):
+        body = {**MeshLink(gpu, 5).to_dict(), "state": STATE_DOWN, "ts": 100.0 + seq}
+        recs.append((seq, 100.0 + seq, "ici_link", f"ici_link:{body['link']}", body))
+    st.ingest("h100-host", recs)
+    pane = st.fleet_fabric(now=200.0)
+    db.close()
+    return {d["link"]: (d["src_chip"], d["dst_chip"], d["axis"]) for d in pane["degraded"]}
+
+
+def test_gpu_0_folds_to_minus_1_in_the_fleet_pane_as_in_the_reference(tmp_path):
+    ref, port = both(fold_src_chip, tmp_path)
+    assert port == ref == {
+        "gpu0/nvlink5": (-1, -1, "nvlink"),
+        "gpu1/nvlink5": (1, -1, "nvlink"),
+        "gpu7/nvlink5": (7, -1, "nvlink"),
+    }

@@ -121,6 +121,13 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.server.server",
     "gpud_tpu_torch.client.v1",
     "gpud_tpu_torch.manager.systemd",
+    # the manager tier
+    "gpud_tpu_torch.server.listener",
+    "gpud_tpu_torch.manager.shard",
+    "gpud_tpu_torch.manager.rollup",
+    "gpud_tpu_torch.manager.exposition",
+    "gpud_tpu_torch.manager.federation",
+    "gpud_tpu_torch.manager.control_plane",
 ])
 def test_the_daemon_path_loads_neither_torch_nor_jax(module):
     # the daemon's modules keep torch (the CUDA runtime) off its import path
@@ -471,8 +478,9 @@ def test_cuda_sources_are_packaged():
 
 
 SERVER_FILES = [f"gpud_tpu_torch/{m}.py" for m in (
-    "server/__init__", "server/tls", "server/app", "server/server", "client/__init__",
-    "client/v1", "manager/systemd")]
+    "server/__init__", "server/tls", "server/app", "server/server", "server/listener",
+    "client/__init__", "client/v1", "manager/systemd", "manager/shard", "manager/rollup",
+    "manager/exposition", "manager/federation", "manager/control_plane")]
 
 
 @pytest.mark.parametrize("path", SERVER_FILES)
@@ -541,3 +549,34 @@ def test_a_tls_server_makes_its_certificate_without_loading_cryptography(tmp_pat
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.splitlines()[-1]) == ["ok", []]
+
+
+def test_the_manager_loads_no_torch_and_grpc_only_when_v2_starts():
+    # torch is made unimportable: importing the control plane, ``manager
+    # serve --help`` and a manager started and stopped never reach it; grpc
+    # loads only in the v2 start
+    code = textwrap.dedent("""
+        import json, runpy, sys
+        sys.modules["torch"] = None
+        import gpud_tpu_torch.manager.control_plane as cpm
+        grpc_at_import = "grpc" in sys.modules
+        sys.argv = ["gpud_tpu_torch", "manager", "serve", "--help"]
+        try:
+            runpy.run_module("gpud_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            code = e.code
+        grpc_after_help = "grpc" in sys.modules
+        cp = cpm.ControlPlane()
+        cp.start()
+        cp.stop()
+        print(json.dumps([code, grpc_at_import, grpc_after_help, "grpc" in sys.modules,
+                          sorted(m for m in sys.modules
+                                 if m.split(".")[0] in ("torch", "jax", "gpud_tpu",
+                                                        "aiohttp", "requests"))]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert "--shards" in proc.stdout
+    assert json.loads(lines[-1]) == [0, False, False, True, ["torch"]]

@@ -33,15 +33,8 @@ from torch_ref_tests import port_tests
 
 WAIT = 30.0
 
-# the manager's operator routes are A10's (the manager tier is not ported)
-MANAGER_CASES = [
-    "test_manager_get_routes_answer", "test_manager_machine_info_unknown_404",
-    "test_manager_request_unknown_agent_404", "test_manager_request_malformed_body_400",
-    "test_manager_fleet_bad_numeric_filters_400", "test_manager_fleet_peers_standalone_shape",
-    "test_manager_drain_roundtrip",
-]
 globals().update(port_tests(
-    "test_http_route_matrix.py", exclude=MANAGER_CASES, replace=REF_TO_PORT + [
+    "test_http_route_matrix.py", replace=REF_TO_PORT + [
         # chaos campaigns are A11's: the port answers /v1/chaos/campaigns as
         # the reference does with chaos disabled (400), held below
         ('"/v1/chaos/campaigns", "/v1/session/status"', '"/v1/session/status"'),

@@ -8,8 +8,10 @@ clock, and replays into a ``FakeSession`` (a connected transport with no
 socket). The seqs, the acked and delivered watermarks, the journal rows,
 the delivery frames (request ids and batch envelopes, record by record),
 the purge and drop accounting and the breaker's states must be equal. The
-reference's ``Session``, dispatcher and agent cases need the session
-transport, its dispatcher and the manager (not ported yet)."""
+manager's side of delivery, ``AgentHandle`` (:427-511: dedupe, the one
+cumulative ack per batch, the decoded prefix acked on a delta desync),
+runs on both packages too; the reference's ``Session`` and dispatcher
+cases run in tests/test_torch_session.py and test_torch_dispatch.py."""
 
 import pytest
 
@@ -410,4 +412,82 @@ CIRCUIT_CASES = {
 @pytest.mark.parametrize("case", CIRCUIT_CASES)
 def test_the_circuit_breaker_is_the_reference_s(case, tmp_path):
     ref, port = both(CIRCUIT_CASES[case], tmp_path)
+    assert port == ref
+
+
+# -- the manager's side: AgentHandle (tests/test_session_outbox.py:427-511) --
+
+
+def drain_acks(h):
+    acks = []
+    while not h.outbound.empty():
+        item = h.outbound.get_nowait()
+        if item and item["data"].get("method") == "outboxAck":
+            acks.append(item["data"]["seq"])
+    return acks
+
+
+def handle_dedupes_and_acks(P, tmp):
+    h = P.control_plane.AgentHandle("m1", "v1")
+    frame = {"outbox_seq": 1, "kind": "event", "dedupe_key": "k1", "ts": 1.0, "payload": {}}
+    h.resolve("outbox-1", frame)
+    h.resolve("outbox-1", frame)  # redelivery: recorded once
+    h.resolve("outbox-2", {"outbox_seq": 2, "kind": "event", "dedupe_key": "k2", "ts": 2.0,
+                           "payload": {}})
+    assert [r["dedupe_key"] for r in h.outbox_records] == ["k1", "k2"]
+    assert h.outbox_acked == 2
+    acks = drain_acks(h)
+    assert acks == [1, 1, 2]
+    # the agent's responses to the acks are swallowed, not queued as noise
+    h.resolve("op-1-ack", {"acked_seq": 1})
+    assert h.unsolicited == []
+    return h.outbox_records, h.outbox_acked, acks, list(h.outbox_keys)
+
+
+def handle_batch_one_ack(P, tmp):
+    h = P.control_plane.AgentHandle("m1", "v2-rev3")
+    enc = P.wire.DeltaEncoder()
+    recs = [enc.encode_record(i + 1, float(i), "event", f"k{i + 1}", {"component": "gpu0", "i": i})
+            for i in range(5)]
+    h.resolve("outbox-batch-1-5", P.wire.build_batch(recs))
+    assert [r["outbox_seq"] for r in h.outbox_records] == [1, 2, 3, 4, 5]
+    assert [r["payload"]["i"] for r in h.outbox_records] == [0, 1, 2, 3, 4]
+    first = drain_acks(h)
+    assert first == [5], "one cumulative ack per batch frame"
+    # a redelivery dedupes but re-acks the watermark
+    enc.reset()
+    redo = [enc.encode_record(i + 1, float(i), "event", f"k{i + 1}", {"component": "gpu0", "i": i})
+            for i in range(5)]
+    h.resolve("outbox-batch-1-5", P.wire.build_batch(redo))
+    assert len(h.outbox_records) == 5
+    second = drain_acks(h)
+    assert second == [5]
+    return h.outbox_records, h.outbox_acked, first, second
+
+
+def handle_prefix_on_desync(P, tmp):
+    h = P.control_plane.AgentHandle("m1", "v2-rev3")
+    good = P.wire.DeltaEncoder().encode_record(1, 1.0, "event", "k1", {"component": "a", "i": 0})
+    # a delta whose keyframe was never delivered
+    enc = P.wire.DeltaEncoder()
+    enc.encode_record(1, 1.0, "event", "x", {"component": "b", "i": 0})
+    orphan = enc.encode_record(2, 2.0, "event", "k2", {"component": "b", "i": 1})
+    h.resolve("outbox-batch-1-2", P.wire.build_batch([good, orphan]))
+    assert [r["dedupe_key"] for r in h.outbox_records] == ["k1"]
+    assert h.outbox_acked == 1
+    acks = drain_acks(h)
+    assert acks == [1]
+    return h.outbox_records, h.outbox_acked, acks
+
+
+HANDLE_CASES = {
+    "dedupes_and_acks": handle_dedupes_and_acks,
+    "batch_one_cumulative_ack": handle_batch_one_ack,
+    "decoded_prefix_on_delta_desync": handle_prefix_on_desync,
+}
+
+
+@pytest.mark.parametrize("case", HANDLE_CASES)
+def test_the_manager_s_agent_handle_is_the_reference_s(case, tmp_path):
+    ref, port = both(HANDLE_CASES[case], tmp_path)
     assert port == ref

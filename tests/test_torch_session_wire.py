@@ -8,8 +8,9 @@ set to None in both, as on a host without the package). The same records
 must give the same encoded arrays, the same batch envelopes and the same
 wire bytes, byte for byte; decoding must give back the same objects, and
 the same inputs must fail with the same error class. The reference's
-cross-revision handshake case needs the session transport and the manager
-(not ported yet)."""
+cross-revision handshake case (a rev-2 agent against a rev-3 manager,
+:222) runs each package's session against its own manager on
+127.0.0.1:0."""
 
 import random
 
@@ -336,3 +337,39 @@ def test_the_api_types_cross_the_wire_as_the_reference_s(name, codec):
                                                 if k != "time"}
         out[P.name] = (buf, d, defaults)
     assert out["port"] == out["ref"]
+
+
+def rev2_agent_against_rev3_manager(P, monkeypatch):
+    """tests/test_session_wire.py:222: the hello clamps to rev 2 and the
+    payloads stay bare JSON."""
+    import importlib
+    import time
+
+    v2_client = importlib.import_module(P.session.__name__.rsplit(".", 1)[0] + ".v2.client")
+    monkeypatch.setattr(v2_client, "MAX_REVISION", 2)
+    cp = P.control_plane.ControlPlane()
+    cp.start()
+    try:
+        monkeypatch.setenv("TPUD_SESSION_V2_TARGET", f"127.0.0.1:{cp.grpc_port}")
+        s = P.session.Session(endpoint=cp.endpoint, machine_id="old-agent", token="t",
+                              machine_proof="p", dispatch_fn=lambda req: {"echo": req.get("method")},
+                              protocol="auto")
+        s.time_sleep_fn = lambda sec: s._stop.wait(min(sec, 0.02))
+        s.start()
+        try:
+            deadline = time.time() + 15
+            while time.time() < deadline and "old-agent" not in cp.agents:
+                time.sleep(0.05)
+            h = cp.agent("old-agent")
+            answer = h.request({"method": "states"}, timeout=10)
+            return h.transport, answer
+        finally:
+            s.stop()
+    finally:
+        cp.stop()
+
+
+def test_a_rev2_agent_against_a_rev3_manager_negotiates_down(monkeypatch):
+    pytest.importorskip("grpc")
+    ref, port = both(rev2_agent_against_rev3_manager, monkeypatch)
+    assert port == ref == ("v2-rev2", {"echo": "states"})

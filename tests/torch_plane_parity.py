@@ -1,7 +1,8 @@
 """Both packages' planes side by side, for the parity tests of the predict
 engine, the fabric sweep, the session wire codec and the outbox
 (``tests/test_torch_{predict,predict_calibrate,fabric,session_wire,
-session_outbox}.py``).
+session_outbox}.py``), with the manager's side of the outbox and the
+fabric (``control_plane``, ``rollup``).
 
 ``REF`` and ``PORT`` hold the same module names, so one scenario function
 runs on either and the tests compare what the two give. The scenarios are
@@ -18,6 +19,8 @@ import gpud_tpu.fabric as ref_fabric
 import gpud_tpu.fabric.mesh as ref_mesh
 import gpud_tpu.fabric.plane as ref_plane
 import gpud_tpu.fabric.store as ref_fabric_store
+import gpud_tpu.manager.control_plane as ref_control_plane
+import gpud_tpu.manager.rollup as ref_rollup
 import gpud_tpu.predict as ref_predict
 import gpud_tpu.predict.calibrate as ref_calibrate
 import gpud_tpu.predict.engine as ref_engine
@@ -36,6 +39,8 @@ import gpud_tpu_torch.fabric as port_fabric
 import gpud_tpu_torch.fabric.mesh as port_mesh
 import gpud_tpu_torch.fabric.plane as port_plane
 import gpud_tpu_torch.fabric.store as port_fabric_store
+import gpud_tpu_torch.manager.control_plane as port_control_plane
+import gpud_tpu_torch.manager.rollup as port_rollup
 import gpud_tpu_torch.predict as port_predict
 import gpud_tpu_torch.predict.calibrate as port_calibrate
 import gpud_tpu_torch.predict.engine as port_engine
@@ -56,6 +61,7 @@ REF = types.SimpleNamespace(
     engine=ref_engine, features=ref_features, audit=ref_audit, policy=ref_policy,
     scheduler=ref_scheduler, outbox=ref_outbox, session=ref_session, wire=ref_wire,
     sqlite=ref_sqlite, storage=ref_storage, types=ref_types,
+    control_plane=ref_control_plane, rollup=ref_rollup,
 )
 PORT = types.SimpleNamespace(
     name="port", fabric=port_fabric, mesh=port_mesh, plane=port_plane,
@@ -63,6 +69,7 @@ PORT = types.SimpleNamespace(
     engine=port_engine, features=port_features, audit=port_audit, policy=port_policy,
     scheduler=port_scheduler, outbox=port_outbox, session=port_session, wire=port_wire,
     sqlite=port_sqlite, storage=port_storage, types=port_types,
+    control_plane=port_control_plane, rollup=port_rollup,
 )
 PKGS = (REF, PORT)
 IDS = ("ref", "port")
