@@ -145,8 +145,8 @@ Phases, each printing its own lines:
              public addresses). Readiness (spawn to the ``listening on``
              line, to the first 200 of /healthz); every GET route of the
              table 200 with a body, 20 times each, through the port's SDK
-             over HTTPS (/v1/chaos/campaigns 400 as the reference's with
-             chaos disabled), /openapi.json equal to the route table, the
+             over HTTPS (/v1/chaos/campaigns naming the 13 shipped
+             campaigns), /openapi.json equal to the route table, the
              other methods routed; /v1/components the registered checks,
              /machine-info's GPUs as nvidia-smi names them, /metrics parsed
              with the NVML gauges and tpud_http_*; ``inject-fault`` with Xid
@@ -185,9 +185,25 @@ Phases, each printing its own lines:
              max] ms per route, VmRSS before and after the load, dirtied
              pages, rebuild seconds, ready and SIGTERM seconds; printed as
              the ``{"manager": ...}`` line.
+14. chaos  - (after the manager phase) the chaos harness: the port's
+             ``Server`` on NVML (network-latency off) in a child without
+             torch, enrolled with the port's fake control plane on 127.0.0.1
+             (its fleet rollup attached), the reference's harness knobs
+             (bench.py:409-419), and all 13 shipped campaigns run on it in
+             name order, as ``bench.py --chaos all``. Per campaign: verdict,
+             seconds, expectations passed of total, steps per action, each
+             detect latency, threads and VmRSS before and after; then the
+             chaos_result records at the plane (13), the scheduler's job
+             failures and watchdog fires (0) and executor calls (0, every
+             decision a dry run). Then ``chaos list`` (the 13) and ``chaos run
+             ici-link-degrade`` (exit 0) through the CLI against ``python -m
+             gpud_tpu_torch run`` with TLS. A failed expectation, a campaign
+             error, a thread that outlived its campaign, a worker exception
+             or an executor call raises; printed as the ``{"chaos": ...}`` line.
 
 The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}``,
-``{"session": ...}``, ``{"server": ...}``, ``{"manager": ...}`` and ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
+``{"session": ...}``, ``{"server": ...}``, ``{"manager": ...}``, ``{"chaos": ...}`` and
+``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero without the ``ok`` line. Data comes from fixed seeds.
@@ -3164,7 +3180,6 @@ XID_79 = "gpu_fallen_off_bus"
 # a GET route's query where it needs one to answer 200
 SERVER_QUERIES = {"/v1/components/trigger-check": {"componentName": ERR_KMSG},
                   "/v1/components/trigger-tag": {"tagName": "kmsg"}}
-CHAOS_DISABLED = {"error": "chaos is disabled (chaos_enabled)"}
 NVML_GAUGES = ("tpud_gpu_temperature_celsius", "tpud_gpu_power_watts", "tpud_gpu_memory_used_bytes")
 _PROM_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")
 
@@ -3350,8 +3365,6 @@ def phase_server(workdir: Path, smi_line: str, planes_on_peak_mb: float, lib: Pa
             raise AssertionError(f"/openapi.json {documented} != the route table {served}")
         answers, ms = {}, {}
         for path in sorted({r.path for r in table if r.method == "GET"}):
-            if path == "/v1/chaos/campaigns":
-                continue
             took = []
             for _ in range(SERVER_REPS):
                 t0 = time.perf_counter()
@@ -3360,12 +3373,8 @@ def phase_server(workdir: Path, smi_line: str, planes_on_peak_mb: float, lib: Pa
             if body in ("", None):
                 raise AssertionError(f"GET {path}: an empty body")
             answers[path], ms[path] = body, [statistics.median(took), max(took)]
-        try:
-            client._req("GET", "/v1/chaos/campaigns")
-            raise AssertionError("/v1/chaos/campaigns answered 200 with chaos not ported")
-        except ClientError as e:
-            if (e.status, json.loads(e.body)) != (400, CHAOS_DISABLED):
-                raise
+        if len(answers["/v1/chaos/campaigns"]["scenarios"]) != CHAOS_CAMPAIGNS:
+            raise AssertionError(f"/v1/chaos/campaigns: {answers['/v1/chaos/campaigns']}")
         # the other methods: the router serves each (the handler may refuse
         # what the empty request names)
         for path, method in served:
@@ -3377,9 +3386,10 @@ def phase_server(workdir: Path, smi_line: str, planes_on_peak_mb: float, lib: Pa
                 if e.status == 405 or e.body == "404: Not Found":
                     raise AssertionError(f"{method} {path}: the router answered {e.status}")
         rec["route_host_ms_p50_max"] = ms
-        line("server", f"{len(ms)} GET routes 200 over HTTPS, {SERVER_REPS} each; "
-                       f"/v1/chaos/campaigns 400 as with chaos disabled; /openapi.json = the "
-                       f"table's {len(served)} routes; host ms [p50, max] {json.dumps(ms)}")
+        line("server", f"{len(ms)} GET routes 200 over HTTPS, {SERVER_REPS} each "
+                       f"(/v1/chaos/campaigns names the {CHAOS_CAMPAIGNS} shipped campaigns); "
+                       f"/openapi.json = the table's {len(served)} routes; host ms [p50, max] "
+                       f"{json.dumps(ms)}")
 
         components = answers["/v1/components"]
         scheduled = [s["component"] for s in answers["/v1/states"]]
@@ -4110,6 +4120,221 @@ def manager_run(w: Path, data_dir: Path, smi_line: str, lib: Path, t_phase: floa
     print(json.dumps({"manager": rec}), flush=True)
     return rec
 
+
+# -- 14. chaos -----------------------------------------------------------------------
+
+CHAOS_CAMPAIGNS = 13  # gpud_tpu_torch/chaos/scenarios/
+# the reference's harness knobs (bench.py:409-419): the outbox-replay and
+# reconnect-storm walks fit their expectation windows only with these
+CHAOS_KNOBS = {"session_circuit_failure_threshold": 3, "session_circuit_open_seconds": 6.0,
+               "outbox_replay_interval_seconds": 0.5, "outbox_replay_jitter_seconds": 0.5}
+# how long a campaign's threads may take to end after it: a reconnect in the
+# session's auto mode leaves a v2 probe's receive thread that ends on its own
+# (about 15 s on the CPU test box after the failover campaign)
+CHAOS_SETTLE_S = 30.0
+CHAOS_CLI_RUN = "ici-link-degrade"  # needs no control plane
+
+
+def chaos_child(workdir: str, knobs: dict, settle_s: float) -> dict:
+    """The port's ``Server`` on NVML (TLS off, network-latency off) enrolled
+    with the port's fake control plane (its fleet rollup attached) on
+    127.0.0.1, the harness's knobs, and every shipped campaign run on it in
+    name order, as the reference's ``bench.py --chaos all``: run in a child
+    without torch. Per campaign: verdict, seconds, expectations passed of
+    total, steps per action, detect latencies, threads and VmRSS around it
+    and the threads it left alive (waited out up to ``settle_s``); then the
+    chaos_result records at the plane, the scheduler's job failures and
+    watchdog fires, and the executors' calls (they refuse)."""
+    import collections
+    import resource
+    import threading
+    import time as _time
+    from pathlib import Path as _Path
+
+    from gpud_tpu_torch.chaos.expectations import counter_total
+    from gpud_tpu_torch.chaos.fake_plane import FakeControlPlane
+    from gpud_tpu_torch.config import default_config
+    from gpud_tpu_torch.process import RunResult
+    from gpud_tpu_torch.server.server import Server
+
+    w = _Path(workdir)
+
+    def say(msg):
+        print(f"[chaos] {msg}", flush=True)
+
+    def vmrss_mb():
+        return int(_Path("/proc/self/statm").read_text().split()[1]) * resource.getpagesize() / 2**20
+
+    def threads():
+        return collections.Counter(t.name for t in threading.enumerate())
+
+    def steps(name):
+        for m in srv.metrics_registry.all_metrics():
+            if m.name == "tpud_chaos_steps_injected_total":
+                return {dict(k)["action"]: v for k, v in m.labels_values()
+                        if dict(k).get("scenario") == name}
+        return {}
+
+    cp = FakeControlPlane()
+    cp.attach_rollup()
+    cp.start()
+    cfg = default_config(data_dir=str(w), kmsg_path=str(w / "kmsg"), port=0, tls=False,
+                         endpoint=f"http://127.0.0.1:{cp.port}", token="chip-smoke-chaos",
+                         machine_id="chip-smoke-chaos", components_disabled=["network-latency"],
+                         **knobs)
+    srv = Server(config=cfg)
+    calls = []
+    srv.remediation.executors.reboot_fn = lambda: (calls.append(["reboot"]), "refused")[1]
+    srv.remediation.executors.run_command_fn = lambda argv, timeout=0, env=None: (
+        calls.append(list(argv)), RunResult(exit_code=1, error="refused"))[1]
+    rec = {"campaigns": {}}
+    t0 = _time.perf_counter()
+    srv.start()
+    try:
+        if not cp.connected.wait(30):
+            raise AssertionError("the session never reached the fake plane")
+        srv.scheduler.wait_first_runs(60)
+        # the session's write stream opens with its first answer: ask one
+        # first, so no campaign is charged the stream's thread
+        cp.send_request("chip-smoke-chaos", "chaos-warm", {"method": "outboxStatus"})
+        if cp.wait_response("chaos-warm", timeout=30) is None:
+            raise AssertionError("the session never answered the fake plane")
+        rec["ready_s"] = _time.perf_counter() - t0
+        srv.chaos.plane = cp
+        reg = srv.metrics_registry
+        names = ("tpud_scheduler_job_failures_total", "tpud_scheduler_watchdog_fires_total")
+        base = {n: counter_total(reg, n) for n in names}
+        rec["supported_checks"] = len(srv.supported_names)
+        rec["runtime_registered"] = srv.registry.get("accelerator-gpu-runtime") is not None
+        rec["threads_before"], rec["vmrss_mb_before"] = sum(threads().values()), vmrss_mb()
+        for name in sorted(srv.chaos.list_scenarios()):
+            before, rss0, s0 = threads(), vmrss_mb(), steps(name)
+            t1 = _time.perf_counter()
+            res, err = srv.chaos.run_campaign(name, wait=True)
+            secs = _time.perf_counter() - t1
+            if err:
+                rec["campaigns"][name] = {"passed": False, "error": err}
+                say(f"{name}: ERROR {err}")
+                continue
+            t2 = _time.monotonic()
+            while threads() - before and _time.monotonic() < t2 + settle_s:
+                _time.sleep(0.1)
+            settled, left = _time.monotonic() - t2, dict(threads() - before)
+            exps = [e for ph in res["phases"] for e in ph["expectations"]]
+            s1 = steps(name)
+            c = {"passed": res["passed"], "error": res["error"], "s": secs,
+                 "expectations": [sum(e["ok"] for e in exps), len(exps)],
+                 "steps": {a: n - s0.get(a, 0.0) for a, n in sorted(s1.items())},
+                 "detect_ms": [e["latency_seconds"] * 1e3 for e in exps
+                               if e["kind"] == "detect" and "latency_seconds" in e],
+                 "threads": [sum(before.values()), sum(threads().values())],
+                 "vmrss_mb": [rss0, vmrss_mb()], "threads_left": left, "settle_s": settled,
+                 "failed": [[ph["name"], e["kind"], e["detail"]] for ph in res["phases"]
+                            for e in ph["expectations"] if not e["ok"]]
+                 + [[ph["name"], "step", x] for ph in res["phases"] for x in ph["step_errors"]]}
+            rec["campaigns"][name] = c
+            say(f"{name}: {'PASS' if c['passed'] else 'FAIL'} in {secs:.3f} s, expectations "
+                f"{c['expectations'][0]}/{c['expectations'][1]}, detect ms "
+                f"{[round(x, 3) for x in c['detect_ms']]}, threads {c['threads']} (settled in "
+                f"{settled:.1f} s), VmRSS "
+                f"{c['vmrss_mb'][0]:.1f} -> {c['vmrss_mb'][1]:.1f} MB"
+                + (f", LEFT {left}" if left else "") + (f", FAILED {c['failed']}" if c["failed"]
+                                                         else ""))
+        # each campaign's result rides the outbox to the plane
+        deadline = _time.monotonic() + 30.0
+        while _time.monotonic() < deadline:
+            frames = [f for f in list(cp.outbox_frames) if f.get("kind") == "chaos_result"]
+            if len(frames) >= len(rec["campaigns"]):
+                break
+            _time.sleep(0.1)
+        rec["chaos_result_records"] = len(frames)
+        rec["chaos_result_passed"] = sum(bool((f.get("payload") or {}).get("passed"))
+                                         for f in frames)
+        rec["worker_exceptions"] = sum(counter_total(reg, n) - base[n] for n in names)
+        rec["executor_calls"] = calls
+        rec["threads_after"], rec["vmrss_mb_after"] = sum(threads().values()), vmrss_mb()
+        rec["phase_s"] = _time.perf_counter() - t0
+    finally:
+        srv.stop()
+        cp.stop()
+    return rec
+
+
+def phase_chaos(workdir: Path, smi_line: str, lib: Path) -> dict:
+    """The chaos harness on the card's machine: ``chaos_child`` (the 13
+    shipped campaigns against the daemon on NVML), then ``chaos list`` and
+    ``chaos run`` through the CLI against ``python -m gpud_tpu_torch run``
+    with TLS. Raises on a failed expectation, a campaign error, a thread
+    that outlived its campaign, a worker exception or an executor call."""
+    t_phase = time.perf_counter()
+    w = workdir / "chaos"
+    w.mkdir()
+    (w / "kmsg").touch()
+    code = child_code(chaos_child, call=f"{{'chaos_child': chaos_child(sys.argv[1], "
+                                        f"{CHAOS_KNOBS!r}, {CHAOS_SETTLE_S!r})}}")
+    env = {k: v for k, v in os.environ.items() if k not in (
+        gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH, "TPUD_ENDPOINT",
+        "TPUD_TOKEN")}
+    env.update(TPUD_KMSG_FILE_PATH=str(w / "kmsg"), TPUD_NATIVE_LIB=str(lib),
+               TPUD_LISTEN_HOST="127.0.0.1")
+    proc = subprocess.run([sys.executable, "-c", code, str(w)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=400)
+    out = proc.stdout.splitlines()
+    for row in out[:-1] if proc.returncode == 0 else out:
+        print(row, flush=True)
+    if proc.returncode != 0 or not out:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise AssertionError(f"the chaos child exited {proc.returncode}")
+    rec = {"card": smi_line, **json.loads(out[-1])["chaos_child"]}
+    campaigns = rec["campaigns"]
+    passed = [n for n, c in campaigns.items() if c["passed"]]
+    exps = [sum(c.get("expectations", [0, 0])[i] for c in campaigns.values()) for i in (0, 1)]
+    rec["passed"], rec["expectations"] = [len(passed), len(campaigns)], exps
+    left = {n: c["threads_left"] for n, c in campaigns.items() if c.get("threads_left")}
+
+    # the CLI against the daemon with its local API over TLS
+    w2 = workdir / "chaos-run"
+    w2.mkdir()
+    (w2 / "kmsg").touch()
+    port = free_port()
+    child = RunChild(w2, port, lib)
+    try:
+        child.listening()
+        listed = server_cli("chaos", "list", "--port", str(port))
+        ran = server_cli("chaos", "run", CHAOS_CLI_RUN, "--port", str(port))
+        rc, _ = child.terminate()
+    except BaseException:
+        child.kill()
+        raise
+    names = [r.strip() for r in listed.stdout.splitlines()[1:CHAOS_CAMPAIGNS + 1]]
+    rec["cli"] = {"list_rc": listed.returncode, "listed": len(names), "run_rc": ran.returncode,
+                  "run_last_line": (ran.stdout.splitlines() or [""])[-1], "sigterm_rc": rc}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    line("chaos", f"{len(passed)}/{len(campaigns)} campaigns passed, expectations "
+                  f"{exps[0]}/{exps[1]}; {rec['chaos_result_records']} chaos_result records at "
+                  f"the plane; {rec['worker_exceptions']:g} worker exceptions, "
+                  f"{len(rec['executor_calls'])} executor calls; threads "
+                  f"{rec['threads_before']} -> {rec['threads_after']}, VmRSS "
+                  f"{rec['vmrss_mb_before']:.1f} -> {rec['vmrss_mb_after']:.1f} MB; CLI over TLS: "
+                  f"chaos list rc {listed.returncode} ({len(names)} names), chaos run "
+                  f"{CHAOS_CLI_RUN} rc {ran.returncode}; phase {rec['phase_s']:.1f} s")
+    print(json.dumps({"chaos": rec}), flush=True)
+    failed = {n: c.get("failed") or c.get("error") for n, c in campaigns.items() if not c["passed"]}
+    if len(campaigns) != CHAOS_CAMPAIGNS or failed or exps[0] != exps[1]:
+        raise AssertionError(f"chaos campaigns failed: {failed}")
+    if left:
+        raise AssertionError(f"threads outlived their campaigns: {left}")
+    if rec["chaos_result_records"] != CHAOS_CAMPAIGNS or rec["worker_exceptions"] or \
+            rec["executor_calls"]:
+        raise AssertionError(f"chaos: {rec['chaos_result_records']} chaos_result records, "
+                             f"{rec['worker_exceptions']} worker exceptions, executor calls "
+                             f"{rec['executor_calls']}")
+    if listed.returncode != 0 or len(names) != CHAOS_CAMPAIGNS or ran.returncode != 0 or \
+            not rec["cli"]["run_last_line"].startswith(f"PASS: {CHAOS_CLI_RUN} (") or rc != 0:
+        raise AssertionError(f"chaos CLI: {rec['cli']}; {listed.stderr} {ran.stdout} "
+                             f"{ran.stderr}")
+    return rec
+
 # -- 8. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
@@ -4501,6 +4726,7 @@ def main() -> int:
         phase_session(workdir, smi, planes_on_peak)
         phase_server(workdir, smi, planes_on_peak, workdir / "native" / native.LIB_NAME)
         phase_manager(workdir, smi, workdir / "native" / native.LIB_NAME)
+        phase_chaos(workdir, smi, workdir / "native" / native.LIB_NAME)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()

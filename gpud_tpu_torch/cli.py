@@ -23,8 +23,8 @@ plugins. Each prints what ``tpud``'s subcommand of the same name prints.
 ``run`` starts the daemon with its local API (``gpud_tpu_torch/server``;
 HTTPS on port 15132 unless ``--port``/``--no-tls``) and prints
 ``tpud <version> listening on <url>``; ``status``, ``set-healthy``,
-``predict``, ``fabric`` and ``session status`` ask a running daemon over
-that API (the client SDK, ``gpud_tpu_torch/client/v1.py``);
+``predict``, ``fabric``, ``session status`` and ``chaos list|run`` ask a
+running daemon over that API (the client SDK, ``gpud_tpu_torch/client/v1.py``);
 ``inject-fault`` writes a fault line into the kmsg file the daemon reads;
 ``notify`` records a startup or shutdown event in the state DB; ``up``
 enrolls with a control plane and installs the systemd unit
@@ -595,6 +595,66 @@ def cmd_session(args) -> int:
     return 0
 
 
+def cmd_chaos(args) -> int:
+    """Drive the running daemon's chaos campaign runner (docs/chaos.md):
+    ``chaos list`` shows scenarios + past results, ``chaos run`` executes
+    one and exits nonzero unless every expectation passed."""
+    from gpud_tpu_torch.client.v1 import ClientError
+
+    # a waited campaign holds the HTTP request for its whole duration
+    c = _client(args, timeout=float(args.timeout))
+    try:
+        if args.chaos_cmd == "list":
+            out = c.get_chaos_campaigns(limit=args.limit)
+            if getattr(args, "as_json", False):
+                print(json.dumps(out, indent=2, sort_keys=True))
+                return 0
+            print("scenarios:")
+            for name in out.get("scenarios", []):
+                print(f"  {name}")
+            running = out.get("running")
+            if running:
+                print(f"running: {running['scenario']} (id {running['id']})")
+            for res in out.get("campaigns", []):
+                verdict = "PASS" if res.get("passed") else "FAIL"
+                print(
+                    f"  #{res.get('id', '?')} {res.get('scenario', '?')}: "
+                    f"{verdict} ({len(res.get('phases', []))} phase(s), "
+                    f"{res.get('duration_seconds', 0):g}s)"
+                )
+            return 0
+        out = c.run_chaos(args.scenario, wait=not args.no_wait)
+    except ClientError as e:
+        print(f"error: {e.body[:500]}", file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001
+        print(f"tpud unreachable on port {args.port}: {e}", file=sys.stderr)
+        return 1
+    if getattr(args, "as_json", False):
+        print(json.dumps(out, indent=2, sort_keys=True))
+    elif args.no_wait:
+        print(f"campaign {out.get('scenario', '?')} launched (id {out.get('id', '?')})")
+    else:
+        for ph in out.get("phases", []):
+            mark = "✔" if ph.get("passed") else "✘"
+            print(f"{mark} phase {ph['name']}")
+            for exp in ph.get("expectations", []):
+                emark = "✔" if exp.get("ok") else "✘"
+                print(f"    {emark} [{exp['kind']}] {exp.get('detail', '')}")
+            for err in ph.get("step_errors", []):
+                print(f"    ✘ step error: {err}")
+        verdict = "PASS" if out.get("passed") else "FAIL"
+        print(
+            f"{verdict}: {out.get('scenario', '?')} "
+            f"({out.get('duration_seconds', 0):g}s)"
+        )
+        if out.get("error"):
+            print(f"campaign error: {out['error']}", file=sys.stderr)
+    if args.no_wait:
+        return 0
+    return 0 if out.get("passed") else 1
+
+
 def cmd_predict(args) -> int:
     """Show the predict engine's precursor scores: fused score, feature
     breakdown, armed/warned state, and measured lead times."""
@@ -1023,6 +1083,30 @@ def build_parser() -> argparse.ArgumentParser:
     prm.add_argument("--json", action="store_true", dest="as_json",
                      help="machine-readable attempts + summary")
     prm.set_defaults(fn=cmd_remediation)
+
+    pch = sub.add_parser(
+        "chaos", help="run declarative chaos campaigns against the daemon"
+    )
+    csub = pch.add_subparsers(dest="chaos_cmd", required=True)
+    cr = csub.add_parser("run", help="execute a scenario; nonzero exit on FAIL")
+    cr.add_argument("scenario",
+                    help="shipped scenario name or a scenario file path")
+    cr.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    cr.add_argument("--no-tls", action="store_true")
+    cr.add_argument("--no-wait", action="store_true",
+                    help="launch on the daemon's pool and return immediately")
+    cr.add_argument("--timeout", type=float, default=330.0,
+                    help="HTTP timeout for the waited campaign (seconds)")
+    cr.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable campaign result")
+    cr.set_defaults(fn=cmd_chaos, audited=True)
+    cl = csub.add_parser("list", help="list scenarios and past campaign results")
+    cl.add_argument("--port", type=int, default=cfgmod.DEFAULT_PORT)
+    cl.add_argument("--no-tls", action="store_true")
+    cl.add_argument("--limit", type=int, default=10)
+    cl.add_argument("--timeout", type=float, default=30.0)
+    cl.add_argument("--json", action="store_true", dest="as_json")
+    cl.set_defaults(fn=cmd_chaos)
 
     ppr = sub.add_parser(
         "predict",

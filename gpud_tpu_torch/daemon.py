@@ -21,9 +21,11 @@ config overrides (:788-792), opens the control-plane session when an
 endpoint and a token are known (:799-977, with the dispatcher, the
 credential pairing, the circuit breaker's peers and the outbox's replay on
 every connect) and watches the token FIFO (:1025-1193); ``stop`` closes
-the session under its lock (:723-738). ``gpud_tpu_torch.server.server.
-Server`` adds the HTTP listener (:683-716); the chaos manager is not
-ported yet.
+the session under its lock (:723-738). It builds the chaos campaign
+runner when ``chaos_enabled`` is set (:209-221), publishes each campaign's
+result through the outbox (:491-501, :524-525) and closes it on ``stop``
+before the scheduler drains (:758-761). ``gpud_tpu_torch.server.server.
+Server`` adds the HTTP listener (:683-716).
 Nothing here imports torch: the anomaly check scores with numpy unless the
 process already holds a CUDA context.
 """
@@ -47,6 +49,7 @@ from gpud_tpu_torch import host as pkghost  # noqa: E402 — after the BLAS defa
 from gpud_tpu_torch import metadata as md
 from gpud_tpu_torch import sdnotify
 from gpud_tpu_torch.api.v1.types import Event, EventType
+from gpud_tpu_torch.chaos import ChaosManager
 from gpud_tpu_torch.components.all import all_components
 from gpud_tpu_torch.components.base import FailureInjector, Registry, TpudInstance
 from gpud_tpu_torch.components.cpu import match_cpu_lockup
@@ -206,6 +209,17 @@ class Daemon:
             accelerator_type=cfg.accelerator_type_override,
         )
 
+        # the chaos campaign runner (docs/chaos.md): loads declarative
+        # scenarios and runs them against this live daemon; running one
+        # always takes an explicit API, session or CLI call
+        self.chaos: Optional[ChaosManager] = None
+        if cfg.chaos_enabled:
+            self.chaos = ChaosManager(
+                self,
+                history_limit=cfg.chaos_history_limit,
+                max_campaign_seconds=float(cfg.chaos_max_campaign_seconds),
+            )
+
         # the fabric sweep over the GPUs' NVLink ports; built before the
         # outbox so the ici_link producer below can hook it
         self.fabric: Optional[FabricPlane] = None
@@ -364,8 +378,8 @@ class Daemon:
     # -- the outbox's producers ------------------------------------------------
     def _wire_outbox_producers(self) -> None:
         """Journal every producer the manager reads: events, health
-        transitions, remediation audit rows, predict scores and fabric
-        links, with the reference's kinds and dedupe keys (each record's
+        transitions, remediation audit rows, chaos campaign results,
+        predict scores and fabric links, with the reference's kinds and dedupe keys (each record's
         natural identity, so the manager collapses redeliveries). Event
         and transition hooks fire on the check's thread, so its
         correlation id rides the record."""
@@ -400,6 +414,18 @@ class Daemon:
                 dedupe_key=f"audit:{row.get('component')}:{row.get('ts')}:{row.get('action')}",
             )
 
+        def on_chaos_result(result: dict) -> None:
+            outbox.publish(
+                "chaos_result",
+                {
+                    "id": result.get("id"),
+                    "scenario": result.get("scenario"),
+                    "passed": result.get("passed"),
+                    "error": result.get("error", ""),
+                },
+                dedupe_key=f"chaos:{result.get('scenario')}:{result.get('id')}",
+            )
+
         def on_predict(body: dict) -> None:
             outbox.publish(
                 "predict_score", body,
@@ -414,6 +440,8 @@ class Daemon:
         self.health_ledger.on_transition = on_transition
         if self.remediation is not None:
             self.remediation.audit.on_record = on_audit
+        if self.chaos is not None:
+            self.chaos.on_result = on_chaos_result
         if self.predictor is not None:
             self.predictor.on_publish = on_predict
         if self.fabric is not None:
@@ -988,6 +1016,10 @@ class Daemon:
             self.predictor.close()
         if self.fabric is not None:
             self.fabric.close()
+        if self.chaos is not None:
+            # aborts an in-flight campaign's sleeps before the pool the
+            # campaign runs on is drained
+            self.chaos.close()
         self.scheduler.close()
         self.health_ledger.close()
         self.event_store.close()

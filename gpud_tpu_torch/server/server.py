@@ -44,9 +44,6 @@ class Server(Daemon):
     def __init__(self, config=None, failure_injector=None, metrics_registry=None) -> None:
         super().__init__(config=config, failure_injector=failure_injector,
                          metrics_registry=metrics_registry)
-        # chaos campaigns are not ported: its routes answer as the
-        # reference's do with chaos_enabled off
-        self.chaos = None
         self._app = App(self)
         self._httpd: Optional[Listener] = None
         self._thread: Optional[threading.Thread] = None

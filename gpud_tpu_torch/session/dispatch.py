@@ -18,8 +18,8 @@ nouns where a request names the accelerator: ``injectFault`` takes
 ``expected_gpu_count`` and an ``nvlink`` section (for the
 ``accelerator-gpu-nvlink`` check) where the reference takes
 ``expected_chip_count`` and ``ici``, and ``error_thresholds`` names the GPU
-catalog's entries. ``chaos`` is not ported: ``chaosRun`` and
-``chaosStatus`` answer as the reference does with chaos disabled.
+catalog's entries. ``chaosRun`` and ``chaosStatus`` drive the daemon's
+chaos campaign runner (``gpud_tpu_torch/chaos/``).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The port's CLI against a running daemon and around it
 (gpud_tpu_torch/cli.py: ``run``, ``inject-fault``, ``status``,
-``set-healthy``, ``predict``, ``fabric``, ``session status``, ``notify``,
-``up``, ``down``; gpud_tpu_torch/manager/systemd.py) against gpud_tpu's.
+``set-healthy``, ``predict``, ``fabric``, ``session status``, ``chaos
+list|run``, ``notify``, ``up``, ``down``; gpud_tpu_torch/manager/systemd.py) against gpud_tpu's.
 
 The reference's own tests of these commands run on the port
 (tests/torch_ref_tests.py, with tests/torch_live.py's replacements and
@@ -97,7 +97,7 @@ def test_run_help_names_the_reference_s_flags(capsys):
 @pytest.mark.parametrize("argv", [
     ["status"], ["set-healthy", "--component", "cpu"], ["predict"], ["fabric"],
     ["session", "status"], ["inject-fault"], ["notify", "startup"], ["up"], ["down"],
-    ["run"],
+    ["run"], ["chaos", "run"], ["chaos", "list"],
 ])
 def test_the_commands_take_the_reference_s_flags(argv):
     import argparse
@@ -106,8 +106,8 @@ def test_the_commands_take_the_reference_s_flags(argv):
 
     def flags(parser, argv):
         sub = parser._subparsers._group_actions[0].choices[argv[0]]
-        if argv[0] == "session":
-            sub = sub._subparsers._group_actions[0].choices["status"]
+        if argv[0] in ("session", "chaos"):
+            sub = sub._subparsers._group_actions[0].choices[argv[1]]
         return sorted(a.option_strings[0] for a in sub._actions
                       if a.option_strings and not isinstance(a, argparse._HelpAction))
 
@@ -130,7 +130,7 @@ def ref_server(tmp_path_factory):
     (tmp / "k").write_text("")
     s = RefServer(config=ref_default_config(
         data_dir=str(tmp / "d"), port=0, tls=False, kmsg_path=str(tmp / "k"),
-        components_disabled=["network-latency"], endpoint="", token="", chaos_enabled=False))
+        components_disabled=["network-latency"], endpoint="", token=""))
     s.start()
     yield s
     s.stop()
@@ -188,3 +188,79 @@ def test_an_unreachable_daemon_is_exit_1_as_in_the_reference(capsys, argv):
         err = capsys.readouterr().err
         assert err.startswith(("tpud unreachable on port 1: ", "error: ")), err
     assert got["port"] == got["ref"] == 1
+
+
+# -- chaos list / run, both CLIs against both daemons ---------------------------------
+
+CHAOS_RUN = "ici-link-degrade"  # needs no control plane; about 1.5 s on each
+
+
+def _idle(*servers, timeout=60.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while any(s.chaos.campaigns()["running"] for s in servers):
+        assert time.monotonic() < deadline, "a chaos campaign still running"
+        time.sleep(0.05)
+
+
+def _shape(text):
+    """A campaign printout with its figures, ids and details out: the
+    phase and expectation marks, kinds and verdict lines."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        line = re.sub(r"\] .*", "]", line)  # an expectation's detail
+        line = re.sub(r"\(id \d+\)", "(id N)", line)
+        out.append(re.sub(r"\d+(\.\d+)?s\)", "Ns)", line))
+    return out
+
+
+def test_chaos_list_is_the_reference_s(capsys, ref_server, live_server):
+    _idle(ref_server, live_server)
+    got = _both(capsys, ref_server, live_server, ["chaos", "list", "--json"])
+    ref, port = (json.loads(got[k][1]) for k in ("ref", "port"))
+    assert got["port"][0] == got["ref"][0] == 0
+    assert set(port) == set(ref) == {"running", "campaigns", "count", "scenarios"}
+    assert port["scenarios"] == ref["scenarios"] and len(port["scenarios"]) == 13
+    got = _both(capsys, ref_server, live_server, ["chaos", "list", "--limit", "0"])
+    assert got["port"][0] == got["ref"][0] == 0
+    scenarios = ["scenarios:"] + [f"  {n}" for n in ref["scenarios"]]
+    for rc, out, err in got.values():
+        assert out.splitlines()[:14] == scenarios and err == ""
+
+
+def test_chaos_run_is_the_reference_s(capsys, ref_server, live_server):
+    _idle(ref_server, live_server)
+    got = _both(capsys, ref_server, live_server, ["chaos", "run", CHAOS_RUN])
+    assert got["port"][0] == got["ref"][0] == 0, got
+    assert _shape(got["port"][1]) == _shape(got["ref"][1])
+    assert got["port"][1].splitlines()[-1].startswith(f"PASS: {CHAOS_RUN} (")
+    assert got["port"][2] == got["ref"][2] == ""
+    got = _both(capsys, ref_server, live_server, ["chaos", "run", CHAOS_RUN, "--json"])
+    ref, port = (json.loads(got[k][1]) for k in ("ref", "port"))
+    assert got["port"][0] == got["ref"][0] == 0
+    assert set(port) == set(ref) and port["passed"] is ref["passed"] is True
+    assert [(p["name"], [e["kind"] for e in p["expectations"]]) for p in port["phases"]] == \
+        [(p["name"], [e["kind"] for e in p["expectations"]]) for p in ref["phases"]]
+
+
+def test_chaos_run_no_wait_is_the_reference_s(capsys, ref_server, live_server):
+    _idle(ref_server, live_server)
+    got = _both(capsys, ref_server, live_server, ["chaos", "run", CHAOS_RUN, "--no-wait"])
+    try:
+        assert got["port"][0] == got["ref"][0] == 0
+        assert _shape(got["port"][1]) == _shape(got["ref"][1]) == \
+            [f"campaign {CHAOS_RUN} launched (id N)"]
+    finally:
+        _idle(ref_server, live_server)
+    for s in (ref_server, live_server):
+        assert s.chaos.campaigns()["campaigns"][0]["passed"] is True
+
+
+def test_chaos_run_of_an_unknown_campaign_is_the_reference_s(capsys, ref_server, live_server):
+    got = _both(capsys, ref_server, live_server, ["chaos", "run", "no-such-campaign"])
+    assert got["port"] == got["ref"]
+    rc, out, err = got["port"]
+    assert rc == 1 and out == "" and err.startswith("error: ") and "not found" in err

@@ -1,8 +1,7 @@
 """The daemon's core and the planes it wires in, composed as ``chip_smoke.py``'s
 daemon phase composes them (gpud_tpu_torch/daemon.py) on the mock GPUs, against
 the reference's own ``Server`` on its TPU mock, built and started by its own
-code with no listener bound and the plane the port lacks (chaos) switched
-off.
+code with no listener bound.
 
 Both run the checks as scheduler jobs over one state DB and one shared
 writer; the same fault (Xid 79 on the port, its analog ``tpu_chip_lost`` on
@@ -57,14 +56,14 @@ PLANE_JOBS = {"session-outbox-replay", "predict-scan", "predict-calibrate", "fab
 SWEEPS = 3
 
 
-# the plane of the reference's server that the port has not ported yet
-UNPORTED_PLANES = dict(chaos_enabled=False)
+# the planes of the reference's server that the port has not ported: none
+# since the chaos campaign runner was ported
+UNPORTED_PLANES = dict()
 
 
 class RefDaemon(RefServer):
     """The reference's own ``Server`` on its TPU mock, built and started by
-    its own code, with the planes the port lacks switched off in the config
-    and the parts that reach outside the process stubbed: the HTTP listener
+    its own code, with the parts that reach outside the process stubbed: the HTTP listener
     (no socket is bound), the control-plane session, the token fifo and the
     package manager."""
 

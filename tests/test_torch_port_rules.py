@@ -128,6 +128,13 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.manager.exposition",
     "gpud_tpu_torch.manager.federation",
     "gpud_tpu_torch.manager.control_plane",
+    # the chaos harness
+    "gpud_tpu_torch.chaos",
+    "gpud_tpu_torch.chaos.scenario",
+    "gpud_tpu_torch.chaos.expectations",
+    "gpud_tpu_torch.chaos.faults",
+    "gpud_tpu_torch.chaos.runner",
+    "gpud_tpu_torch.chaos.fake_plane",
 ])
 def test_the_daemon_path_loads_neither_torch_nor_jax(module):
     # the daemon's modules keep torch (the CUDA runtime) off its import path
@@ -157,6 +164,26 @@ def test_the_planes_import_neither_torch_nor_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_modules(tree)
            if m.split(".")[0] in FORBIDDEN + ("torch", "triton")]
     assert not bad, f"{path} imports {bad}"
+
+
+CHAOS_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "gpud_tpu_torch" / "chaos").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", CHAOS_FILES)
+def test_the_chaos_harness_imports_no_jax_no_jax_package_no_aiohttp_and_no_torch(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN + ("aiohttp", "torch", "triton")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_the_chaos_harness_ships_its_own_campaigns():
+    # loaded from its own directory, never from the JAX package's YAML files
+    from gpud_tpu_torch.chaos.scenario import SCENARIOS_DIR, shipped_scenarios
+
+    assert Path(SCENARIOS_DIR) == REPO / "gpud_tpu_torch" / "chaos" / "scenarios"
+    assert len(shipped_scenarios()) == 13
+    assert all(Path(p).parent == Path(SCENARIOS_DIR) for p in shipped_scenarios().values())
 
 
 SESSION_FILES = [f"gpud_tpu_torch/{m}.py" for m in (

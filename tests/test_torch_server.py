@@ -33,12 +33,7 @@ from torch_ref_tests import port_tests
 
 WAIT = 30.0
 
-globals().update(port_tests(
-    "test_http_route_matrix.py", replace=REF_TO_PORT + [
-        # chaos campaigns are A11's: the port answers /v1/chaos/campaigns as
-        # the reference does with chaos disabled (400), held below
-        ('"/v1/chaos/campaigns", "/v1/session/status"', '"/v1/session/status"'),
-    ]))
+globals().update(port_tests("test_http_route_matrix.py", replace=REF_TO_PORT))
 globals().update(port_tests("test_pprof_admin.py", replace=REF_TO_PORT))
 globals().update(port_tests("test_metrics_exposition_contract.py", replace=REF_TO_PORT))
 globals().update(port_tests("test_remediation_http.py", replace=REF_TO_PORT))
@@ -175,11 +170,16 @@ def test_the_middleware_labels_by_template_and_collapses_the_rest(addr, live_ser
         s["attrs"] for s in spans if s["name"] == "http.request"]
 
 
-def test_chaos_routes_answer_as_the_reference_with_chaos_disabled(addr):
-    assert _get(addr, "/v1/chaos/campaigns")[::2] == (
-        400, b'{"error": "chaos is disabled (chaos_enabled)"}')
-    assert _get(addr, "/v1/chaos/run", "POST", b'{"scenario": "x"}')[::2] == (
-        400, b'{"error": "chaos is disabled (chaos_enabled)"}')
+def test_chaos_routes_answer_as_the_reference_with_chaos_disabled(server_pair):
+    # both servers of the pair are built with chaos_enabled=False
+    got = {}
+    for name, s in server_pair.items():
+        assert s.chaos is None
+        a = ("127.0.0.1", s.port)
+        got[name] = (_get(a, "/v1/chaos/campaigns")[::2],
+                     _get(a, "/v1/chaos/run", "POST", b'{"scenario": "x"}')[::2])
+    disabled = (400, b'{"error": "chaos is disabled (chaos_enabled)"}')
+    assert got["port"] == got["ref"] == (disabled, disabled)
 
 
 def test_bodies_over_the_limit_are_refused(addr):
