@@ -185,7 +185,7 @@ Phases, each printing its own lines:
              max] ms per route, VmRSS before and after the load, dirtied
              pages, rebuild seconds, ready and SIGTERM seconds; printed as
              the ``{"manager": ...}`` line.
-14. chaos  - (after the manager phase) the chaos harness: the port's
+14. chaos  - (after the federation phase) the chaos harness: the port's
              ``Server`` on NVML (network-latency off) in a child without
              torch, enrolled with the port's fake control plane on 127.0.0.1
              (its fleet rollup attached), the reference's harness knobs
@@ -200,9 +200,42 @@ Phases, each printing its own lines:
              gpud_tpu_torch run`` with TLS. A failed expectation, a campaign
              error, a thread that outlived its campaign, a worker exception
              or an executor call raises; printed as the ``{"chaos": ...}`` line.
+15. federation - (after the manager phase) manager federation, as the
+             reference's drill (bench.py:2082-2420, ``bench.py --fleet
+             --socket --managers 2``) with real processes: two ``python -m
+             gpud_tpu_torch manager serve --peer-id ... --peers ...``
+             children, m-a (the victim) and m-b (the survivor), at the
+             bench's cadences (replication 0.1 s, probes 0.5 s, fan-out 2 s,
+             dead after 2 probes), 8 shards, journals on the local
+             filesystem; the daemon child (NVML, planes on, v1) enrolled with
+             both as its session peers, its owner m-a first, an Xid 79
+             through m-a until the survivor's federated pane shows it; 2048
+             agents x 60 transition records in frames of 60 from 48 senders
+             over the v2 tunnel, split by the rendezvous hash (the victim's
+             cohort its first 30), the survivor's federated rollup read
+             throughout; the daemon paused (SIGSTOP) until the survivor's
+             replica reaches the victim's journal head and both stay still
+             for 1 s; SIGKILL of the victim (the daemon resumed), the
+             survivor's adoption, the victim's cohort redelivering its last
+             20 records and its second half to the survivor, the daemon's
+             breaker taking it there and an Xid 48 through the survivor;
+             ``fleet peers`` and ``fleet agents --peer m-b``; SIGTERM. Gates:
+             122,880 unique fed-* records in the survivor's journal and
+             every record the daemon had acked, no executor drop; the
+             survivor's replica of m-a equal to the victim's fleet.db, read
+             after the kill, in every column; adoption within 20 s; the
+             final pane federated with 2049 agents and m-a unreachable and
+             adopted; both Xids' events in the survivor's pane; both CLI
+             commands exit 0; SIGTERM exit 0 within 15 s; no torch mapped in
+             either manager. Reported beside the bench's limits (3000 /
+             1000 / 750 ms): failover p95 and the pane p95 with both peers
+             live and with one dead; replication, adoption and daemon
+             failover seconds, VmRSS; printed as the ``{"federation": ...}``
+             line.
 
 The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}``,
-``{"session": ...}``, ``{"server": ...}``, ``{"manager": ...}``, ``{"chaos": ...}`` and
+``{"session": ...}``, ``{"server": ...}``, ``{"manager": ...}``, ``{"federation": ...}``,
+``{"chaos": ...}`` and
 ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
 record, which is the line before the last; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
@@ -2602,13 +2635,16 @@ SESSION_PACKAGES = ("grpc", "google.protobuf", "cryptography", "yaml", "requests
 
 
 def session_child(workdir: str, endpoint: str, protocol: str, v2_target: str, machine_id: str,
-                  boot_token: str, fresh_token: str) -> dict:
+                  boot_token: str, fresh_token: str, peers: str = "") -> dict:
     """The daemon on NVML as in the daemon phase (the 17 checks every 2 s,
     the planes on at the phase's cadences), with a control-plane endpoint
     and a boot token, its every session pinned to ``protocol``: run in a child
-    without torch. Each answer the dispatcher gives is held against the
-    daemon's own stores read just before and just after it; the child runs
-    until the parent writes ``done`` into the workdir, then reports."""
+    without torch. With ``peers`` (comma-separated manager specs, its owner
+    first) the session's breaker rotates among them at the chaos harness's
+    knobs (bench.py:409-419: 3 failures, 6 s open). Each answer the
+    dispatcher gives is held against the daemon's own stores read just
+    before and just after it; the child runs until the parent writes
+    ``done`` into the workdir, then reports."""
     import json as _json
     import resource
     import sys as _sys
@@ -2643,7 +2679,9 @@ def session_child(workdir: str, endpoint: str, protocol: str, v2_target: str, ma
         machine_id=machine_id, poll_interval_seconds=poll_s, remediation_interval_seconds=poll_s,
         scrape_interval_seconds=poll_s, predict_interval_seconds=poll_s,
         predict_calibrate_interval_seconds=poll_s, fabric_sweep_interval_seconds=poll_s,
-        outbox_replay_interval_seconds=poll_s, outbox_redeliver_seconds=600)
+        outbox_replay_interval_seconds=poll_s, outbox_redeliver_seconds=600,
+        **({"session_peers": peers.split(","), "session_circuit_failure_threshold": 3,
+            "session_circuit_open_seconds": 6.0} if peers else {}))
     # every session the daemon opens speaks ``protocol``
     session_init = session_mod.Session.__init__
 
@@ -2769,7 +2807,9 @@ def session_child(workdir: str, endpoint: str, protocol: str, v2_target: str, ma
         "session": {"reconnects": session.reconnect_count,
                     "connect_attempts": session.connect_attempts,
                     "fresh_token": session.token == fresh_token,
-                    "auth_failed": session.auth_failed},
+                    "auth_failed": session.auth_failed,
+                    "endpoint": session.endpoint},
+        "circuit": d.session_circuit.stats(),
         "cpu_s_per_s": (ru1.ru_utime + ru1.ru_stime - ru0.ru_utime - ru0.ru_stime)
                        / (t_end - t_start),
         "vmrss_peak_sampled_mb": max(rss + [vmrss_mb()]), "dirty_mb": dirty_mb(),
@@ -3564,6 +3604,7 @@ _stop = cpm.ControlPlane.stop
 
 def stop(self):
     rec = {"executor": self.ingest_executor.stats(),
+           "federation": self.federation.stats() if self.federation else None,
            "rebuild": {"seconds": self.rollup.last_rebuild_seconds,
                        "shards": self.rollup.shard_count,
                        "parallel": self.rollup.rebuild_parallel},
@@ -3585,8 +3626,9 @@ class ManagerChild:
     127.0.0.1, ports first taken from ``127.0.0.1:0``; ready once it prints
     its endpoint line."""
 
-    def __init__(self, w: Path, data_dir: Path, tag: str, shards: int = MANAGER_SHARDS) -> None:
-        self.port, self.grpc_port = free_port(), free_port()
+    def __init__(self, w: Path, data_dir: Path, tag: str, shards: int = MANAGER_SHARDS,
+                 ports: tuple = (), extra: tuple = ()) -> None:
+        self.port, self.grpc_port = ports or (free_port(), free_port())
         self.report = w / f"manager_{tag}.json"
         self.err = open(w / f"manager_{tag}.log", "wb")
         env = {k: v for k, v in os.environ.items() if k not in (
@@ -3595,7 +3637,7 @@ class ManagerChild:
         self.proc = subprocess.Popen(
             [sys.executable, "-c", MANAGER_WRAPPER, str(self.report), "manager", "serve",
              "--data-dir", str(data_dir), "--shards", str(shards),
-             "--port", str(self.port), "--grpc-port", str(self.grpc_port)],
+             "--port", str(self.port), "--grpc-port", str(self.grpc_port), *extra],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=self.err, text=True)
         ready = self.proc.stdout.readline()
         self.ready_s = time.perf_counter() - self.t0
@@ -3658,37 +3700,58 @@ def manager_cli(*argv: str) -> tuple:
     return json.loads(proc.stdout), ms
 
 
+def agent_records(count: int, t_base: float, cid: str = "") -> list:
+    """One simulated agent's transition records 1..count as bench.py makes
+    them: (seq, ts, dedupe key, payload); ``cid`` rides the first."""
+    run = []
+    for n in range(count):
+        comp = MANAGER_COMPONENTS[n % len(MANAGER_COMPONENTS)]
+        to = "Unhealthy" if n % 2 == 0 else "Healthy"
+        frm = "Healthy" if to == "Unhealthy" else "Unhealthy"
+        ts = t_base + n * 0.001
+        payload = {"component": comp, "from": frm, "to": to, "ts": ts, "reason": "smoke"}
+        if cid and n == 0:
+            payload["correlation_id"] = cid
+        run.append((n + 1, ts, f"transition:{comp}:{ts}:{to}", payload))
+    return run
+
+
+def encode_frames(pb, wire, run: list) -> list:
+    """A run of records in outbox_batch frames of MANAGER_BATCH, delta-encoded
+    from a keyframe as a fresh connection's are: [AgentPacket]."""
+    enc, frames, recs = wire.DeltaEncoder(), [], []
+    for k, (seq, ts, key, payload) in enumerate(run):
+        recs.append(enc.encode_record(seq, ts, "transition", key, payload))
+        if len(recs) >= MANAGER_BATCH or k == len(run) - 1:
+            pkt = pb.AgentPacket()
+            pkt.frame.req_id = f"outbox-{seq}"
+            pkt.frame.data = wire.encode_payload(wire.build_batch(recs))
+            frames.append(pkt)
+            recs = []
+    return frames
+
+
 def fleet_frames(pb, wire, t_base: float) -> list:
     """Every simulated agent's outbox frames, encoded before the timed
     window as bench.py does: (machine id, [AgentPacket], last seq)."""
-    work = []
-    for i in range(MANAGER_AGENTS):
-        enc, frames, recs = wire.DeltaEncoder(), [], []
-        for n in range(MANAGER_RECORDS_PER_AGENT):
-            comp = MANAGER_COMPONENTS[n % len(MANAGER_COMPONENTS)]
-            to = "Unhealthy" if n % 2 == 0 else "Healthy"
-            frm = "Healthy" if to == "Unhealthy" else "Unhealthy"
-            ts = t_base + n * 0.001
-            payload = {"component": comp, "from": frm, "to": to, "ts": ts, "reason": "smoke"}
-            if i == 0 and n == 0:
-                payload["correlation_id"] = MANAGER_CID
-            recs.append(enc.encode_record(n + 1, ts, "transition", f"transition:{comp}:{ts}:{to}",
-                                          payload))
-            if len(recs) >= MANAGER_BATCH or n == MANAGER_RECORDS_PER_AGENT - 1:
-                pkt = pb.AgentPacket()
-                pkt.frame.req_id = f"outbox-{n + 1}"
-                pkt.frame.data = wire.encode_payload(wire.build_batch(recs))
-                frames.append(pkt)
-                recs = []
-        work.append((f"sock-{i:04d}", frames, MANAGER_RECORDS_PER_AGENT))
-    return work
+    return [(f"sock-{i:04d}",
+             encode_frames(pb, wire, agent_records(MANAGER_RECORDS_PER_AGENT, t_base,
+                                                   MANAGER_CID if i == 0 else "")),
+             MANAGER_RECORDS_PER_AGENT)
+            for i in range(MANAGER_AGENTS)]
 
 
-def drive_fleet(grpc_port: int, work: list, endpoint: str) -> dict:
-    """The fleet load over the v2 Frame tunnel: MANAGER_SENDERS threads,
-    each cycling its agents through one stream at a time (Hello, the
-    frames, then wait for the cumulative ack of the last seq), while an
-    operator polls the rollup and agents panes (the cold reads)."""
+FLEET_POLLS = (("/v1/fleet/rollup", None), ("/v1/fleet/agents", {"limit": 100}))
+
+
+def drive_fleet(grpc_port: int, work: list, endpoint: str, senders: int = MANAGER_SENDERS,
+                cohorts: tuple = (), polls: tuple = FLEET_POLLS) -> dict:
+    """The fleet load over the v2 Frame tunnel: ``senders`` threads, each
+    cycling its agents through one stream at a time (Hello, the frames,
+    then wait for the cumulative ack of the last seq), while an operator
+    polls ``polls`` at ``endpoint`` (the cold reads). ``cohorts`` are more
+    (grpc port, work, senders) driven at the same time. Each agent's drive,
+    from its stream's open to its last ack, is timed (``agent_ms``)."""
     import queue as _queue
 
     import grpc
@@ -3698,19 +3761,23 @@ def drive_fleet(grpc_port: int, work: list, endpoint: str) -> dict:
     from gpud_tpu_torch.session.v2 import session_pb2 as pb
     from gpud_tpu_torch.session.v2.client import METHOD
 
-    failures, acked_to, cold_ms = [], {}, []
+    failures, acked_to, cold_ms, agent_ms, poll_errors = [], {}, [], [], []
     done = threading.Event()
     mu = threading.Lock()
 
     def operator():
         c = Client(endpoint, timeout=30)
-        while not done.is_set():
-            for path, params in (("/v1/fleet/rollup", None), ("/v1/fleet/agents", {"limit": 100})):
-                t0 = time.perf_counter()
-                c._req("GET", path, params=params)
-                cold_ms.append((time.perf_counter() - t0) * 1e3)
-            done.wait(0.4)
-        c.close()
+        try:
+            while not done.is_set():
+                for path, params in polls:
+                    t0 = time.perf_counter()
+                    c._req("GET", path, params=params)
+                    cold_ms.append((time.perf_counter() - t0) * 1e3)
+                done.wait(0.4)
+        except Exception as e:  # noqa: BLE001 — raised below, after the senders
+            poll_errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            c.close()
 
     def drive(stream, machine_id, frames, last_seq):
         out_q: "_queue.Queue" = _queue.Queue()
@@ -3737,22 +3804,26 @@ def drive_fleet(grpc_port: int, work: list, endpoint: str) -> dict:
         with mu:
             acked_to[machine_id] = top
 
-    def worker(part):
-        channel = grpc.insecure_channel(f"127.0.0.1:{grpc_port}")
+    def worker(port, part):
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
         stream = channel.stream_stream(METHOD, request_serializer=pb.AgentPacket.SerializeToString,
                                        response_deserializer=pb.ManagerPacket.FromString)
         try:
             for machine_id, frames, last_seq in part:
+                t0 = time.perf_counter()
                 try:
                     drive(stream, machine_id, frames, last_seq)
                 except grpc.RpcError as e:
                     failures.append(f"{machine_id}: {e.code()}")
+                    continue
+                agent_ms.append((time.perf_counter() - t0) * 1e3)
         finally:
             channel.close()
 
+    groups = [(grpc_port, work, senders), *cohorts]
     reader = threading.Thread(target=operator, daemon=True)
-    threads = [threading.Thread(target=worker, args=(work[k::MANAGER_SENDERS],), daemon=True)
-               for k in range(MANAGER_SENDERS)]
+    threads = [threading.Thread(target=worker, args=(port, items[k::n]), daemon=True)
+               for port, items, n in groups for k in range(n)]
     reader.start()
     t0 = time.perf_counter()
     for t in threads:
@@ -3764,13 +3835,14 @@ def drive_fleet(grpc_port: int, work: list, endpoint: str) -> dict:
     reader.join(timeout=60)
     if any(t.is_alive() for t in threads) or reader.is_alive():
         raise AssertionError("manager: a fleet sender is still running")
-    short = [m for m, _f, last in work if acked_to.get(m, 0) < last]
-    if failures or short:
+    everyone = [item for _port, items, _n in groups for item in items]
+    short = [m for m, _f, last in everyone if acked_to.get(m, 0) < last]
+    if failures or short or poll_errors:
         raise AssertionError(f"manager: fleet failures {failures[:5]}, {len(short)} agents "
-                             f"not acked to their last seq ({short[:5]})")
-    total = len(work) * MANAGER_RECORDS_PER_AGENT
+                             f"not acked to their last seq ({short[:5]}), polls {poll_errors}")
+    total = sum(last for _m, _f, last in everyone)  # the records up to each last seq
     return {"elapsed_s": elapsed, "records": total, "records_per_s": total / elapsed,
-            "cold_ms": cold_ms}
+            "cold_ms": cold_ms, "agent_ms": agent_ms}
 
 
 def fleet_view(client) -> dict:
@@ -3788,6 +3860,90 @@ def fleet_view(client) -> dict:
     return {"rollup": roll, "agents": agents}
 
 
+class DaemonChild:
+    """The session phase's daemon child (NVML, planes on, its sessions
+    pinned to ``protocol``) enrolled as ``machine`` with the manager at
+    ``endpoint``; with ``peers`` (manager specs, its owner first) its
+    breaker rotates among them. Ready once the child says it is connected."""
+
+    def __init__(self, cw: Path, endpoint: str, protocol: str, v2_target: str, machine: str,
+                 lib: Path, peers: tuple = ()) -> None:
+        self.cw, self.protocol, self.machine = cw, protocol, machine
+        cw.mkdir()
+        (cw / "kmsg").touch()
+        code = child_code(session_child, call="{'session_child': session_child(*sys.argv[1:])}")
+        env = dict(os.environ, TPUD_NATIVE_LIB=str(lib))
+        for k in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
+            env.pop(k, None)
+        self.out_path, self.err_path = cw / "child.out", cw / "child.err"
+        with open(self.out_path, "w") as out_f, open(self.err_path, "w") as err_f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", code, str(cw), endpoint, protocol, v2_target, machine,
+                 BOOT_TOKEN, FRESH_TOKEN, ",".join(peers)],
+                cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
+        deadline = time.perf_counter() + 90
+        while not (cw / "connected").exists():
+            if self.proc.poll() is not None or time.perf_counter() > deadline:
+                self.kill()
+                raise AssertionError(f"the {protocol} daemon never enrolled: "
+                                     f"{self.err_path.read_text()[-4000:]}")
+            time.sleep(0.05)
+
+    def finish(self) -> dict:
+        """Tell the child to report and stop; its report."""
+        (self.cw / "done").write_text("1")
+        try:
+            rc = self.proc.wait(timeout=120)
+        finally:
+            self.kill()
+        out = self.out_path.read_text().splitlines()
+        if rc != 0 or not out:
+            sys.stderr.write(self.err_path.read_text()[-8000:])
+            raise AssertionError(f"the {self.protocol} daemon child exited {rc}")
+        child = json.loads(out[-1])["session_child"]
+        if child["torch_loaded"]:
+            raise AssertionError(f"the {self.protocol} daemon child loaded {child['torch_loaded']}")
+        return child
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def inject_fault(endpoint: str, machine: str, kernel_message: str) -> float:
+    """A kmsg line into ``machine``'s kmsg file through ``manager request
+    injectFault``; the perf_counter time it was asked."""
+    t_inject = time.perf_counter()
+    inj, _ = manager_cli("manager", "request", machine, "injectFault", "--endpoint", endpoint,
+                         "--params", json.dumps({"kernel_message": kernel_message}))
+    if inj["response"].get("status") != "ok":
+        raise AssertionError(f"injectFault: {inj}")
+    return t_inject
+
+
+def unhealthy_in_pane(client, machine: str):
+    """``machine``'s error-kmsg series in the fleet pane once it is
+    Unhealthy, else None."""
+    roll = client._req("GET", "/v1/fleet/rollup")
+    if not roll["unhealthy_series"]:
+        return None
+    page = client._req("GET", "/v1/fleet/agents", params={"limit": 500})
+    mine = next((a for a in page["agents"] if a["agent"] == machine), None)
+    series = (mine or {}).get("components", {}).get(ERR_KMSG)
+    return series if series and series["state"] == "Unhealthy" else None
+
+
+def until(cond, what: str, timeout: float = MANAGER_WAIT_S):
+    """Poll ``cond`` every 50 ms until it gives a value; that value."""
+    deadline = time.perf_counter() + timeout
+    while (got := cond()) is None or got is False:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what} after {timeout} s")
+        time.sleep(0.05)
+    return got
+
+
 def enroll_daemon(w: Path, mgr: "ManagerChild", protocol: str, lib: Path, xid: bool) -> dict:
     """The session phase's daemon child (NVML, planes on) enrolled with
     the manager over ``protocol``: with ``xid``, an Xid 79 line injected
@@ -3797,53 +3953,19 @@ def enroll_daemon(w: Path, mgr: "ManagerChild", protocol: str, lib: Path, xid: b
     from gpud_tpu_torch.client.v1 import Client
 
     machine = f"{MANAGER_AGENT}-{protocol}"
-    cw = w / f"agent_{protocol}"
-    cw.mkdir()
-    (cw / "kmsg").touch()
     v2_target = f"http://127.0.0.1:{mgr.grpc_port}" if protocol == "v2" else ""
-    code = child_code(session_child, call="{'session_child': session_child(*sys.argv[1:])}")
-    env = dict(os.environ, TPUD_NATIVE_LIB=str(lib))
-    for k in (gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH):
-        env.pop(k, None)
-    out_path, err_path = cw / "child.out", cw / "child.err"
-    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
-        proc = subprocess.Popen([sys.executable, "-c", code, str(cw), mgr.endpoint, protocol,
-                                 v2_target, machine, BOOT_TOKEN, FRESH_TOKEN], cwd=ROOT, env=env,
-                                stdout=out_f, stderr=err_f)
+    daemon = DaemonChild(w / f"agent_{protocol}", mgr.endpoint, protocol, v2_target, machine, lib)
     client = Client(mgr.endpoint, timeout=30)
     rec = {"protocol": protocol, "machine_id": machine}
     try:
-        deadline = time.perf_counter() + 90
-        while not (cw / "connected").exists():
-            if proc.poll() is not None or time.perf_counter() > deadline:
-                raise AssertionError(f"the {protocol} daemon never enrolled: "
-                                     f"{err_path.read_text()[-4000:]}")
-            time.sleep(0.05)
         machines = {m["machine_id"]: m for m in client._req("GET", "/v1/machines")["machines"]}
         want = "v1" if protocol == "v1" else "v2-rev3"
         if machines.get(machine, {}).get("transport") != want:
             raise AssertionError(f"manager machines: {machines}")
         if xid:
-            t_inject = time.perf_counter()
-            inj, _ = manager_cli("manager", "request", machine, "injectFault", "--endpoint",
-                                 mgr.endpoint, "--params", json.dumps({"kernel_message": XID79}))
-            if inj["response"].get("status") != "ok":
-                raise AssertionError(f"injectFault: {inj}")
-
-            def in_pane():
-                roll = client._req("GET", "/v1/fleet/rollup")
-                if not roll["unhealthy_series"]:
-                    return None
-                page = client._req("GET", "/v1/fleet/agents", params={"limit": 500})
-                mine = next((a for a in page["agents"] if a["agent"] == machine), None)
-                series = (mine or {}).get("components", {}).get(ERR_KMSG)
-                return series if series and series["state"] == "Unhealthy" else None
-
-            deadline = time.perf_counter() + MANAGER_WAIT_S
-            while (series := in_pane()) is None:
-                if time.perf_counter() > deadline:
-                    raise AssertionError(f"the Xid's transition never reached the fleet pane")
-                time.sleep(0.05)
+            t_inject = inject_fault(mgr.endpoint, machine, XID79)
+            series = until(lambda: unhealthy_in_pane(client, machine),
+                           "the Xid's transition never reached the fleet pane")
             rec["inject_to_pane_ms"] = (time.perf_counter() - t_inject) * 1e3
             rec["pane_series"] = series
         answers, cli_ms = [], []
@@ -3853,18 +3975,10 @@ def enroll_daemon(w: Path, mgr: "ManagerChild", protocol: str, lib: Path, xid: b
             answers.append(got["response"])
             cli_ms.append(ms)
         rec["states_cli_ms"] = cli_ms
-        (cw / "done").write_text("1")
-        rc = proc.wait(timeout=120)
+        child = daemon.finish()
     finally:
         client.close()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    out = out_path.read_text().splitlines()
-    if rc != 0 or not out:
-        sys.stderr.write(err_path.read_text()[-8000:])
-        raise AssertionError(f"the {protocol} daemon child exited {rc}")
-    child = json.loads(out[-1])["session_child"]
+        daemon.kill()
     filed = [child["answers"].get(f"unprobed-states-{k}") for k in range(MANAGER_STATES_ASKS)]
     bad = [k for k, (a, f) in enumerate(zip(answers, filed))
            if f is None or f["answer"] != a or not f["stores"]]
@@ -3876,8 +3990,6 @@ def enroll_daemon(w: Path, mgr: "ManagerChild", protocol: str, lib: Path, xid: b
                 or child["executor_calls"]):
         raise AssertionError(f"the Xid: {child['transitions']}, {child['audit']}, "
                              f"{child['executor_calls']}")
-    if child["torch_loaded"]:
-        raise AssertionError(f"the {protocol} daemon child loaded {child['torch_loaded']}")
     rec.update(enroll_ms=child["connect_ms"], active_protocol=child["active_protocol"],
                acked_seq=child["outbox"]["acked_seq"],
                journal={row[3]: row[0] for row in child["journal"]},
@@ -4118,6 +4230,315 @@ def manager_run(w: Path, data_dir: Path, smi_line: str, lib: Path, t_phase: floa
                     f"{json.dumps({k: round(v, 3) for k, v in rec['rebuild_s'].items()})}, "
                     f"each view identical; phase {rec['phase_s']:.1f} s")
     print(json.dumps({"manager": rec}), flush=True)
+    return rec
+
+
+# -- 15. federation ------------------------------------------------------------------
+
+# the reference's federated drill (bench.py:2082-2420, bench_fleet_socket_federated):
+# two peered managers, 2048 agents x 60 transition records split between them by
+# the rendezvous hash, the victim's cohort sending its first half before the
+# victim dies and the rest (its last 20 again) to the survivor after
+FED_PEERS = ("m-a", "m-b")  # the victim, the survivor
+FED_RECORDS_PER_AGENT = 60  # FLEET_FED_RECORDS_PER_AGENT
+FED_OVERLAP = 20            # FLEET_FED_OVERLAP_RECORDS: the redelivered tail
+FED_CADENCE = ("--replication-interval", "0.1", "--probe-interval", "0.5",
+               "--fanout-timeout", "2", "--dead-after-probes", "2")  # bench.py:2160-2167
+FED_ADOPT_MAX_S = 20.0      # FLEET_FED_ADOPT_MAX_S: SIGKILL to the cohort adopted
+FED_QUIET_S = 1.0           # the victim's journal head still, and replicated, this long
+FED_MIN_PANE_READS = 8      # pane reads for each p95, at the least
+# the bench's own limits, reported beside the port's figures, not gated
+FED_LIMITS_MS = {"pane_live_p95": 1000.0, "pane_dead_p95": 750.0, "failover_p95": 3000.0}
+XID48 = ("NVRM: Xid (PCI:0000:18:00): 48, pid=2714, name=python3, An uncorrectable double "
+         "bit error (DBE) has been detected on GPU in the framebuffer at partition 6, "
+         "subpartition 0.")
+XID_48 = "gpu_ecc_xid48"
+JOURNAL_ROWS = ("SELECT rowid, agent, seq, ts, ingested, kind, dedupe_key, correlation_id, "
+                "payload, shard FROM tpud_fleet_journal_v0_1 ORDER BY rowid")
+REPLICA_ROWS = ("SELECT src_rowid, agent, seq, ts, ingested, kind, dedupe_key, correlation_id, "
+                "payload, shard FROM tpud_fleet_replica_v0_1 WHERE source_peer = ? "
+                "ORDER BY src_rowid")
+
+
+def fed_frames(pb, wire, t_base: float) -> tuple:
+    """The drill's frames, encoded before it as the bench does: phase 1 per
+    owner (the victim's cohort its first half, the survivor's all 60), and
+    phase 2, the victim's cohort from its last FED_OVERLAP delivered records
+    to its end, from a keyframe as after a reconnect."""
+    from gpud_tpu_torch.manager.peers import owner_of
+
+    half = FED_RECORDS_PER_AGENT // 2
+    phase1, phase2 = {p: [] for p in FED_PEERS}, []
+    for i in range(MANAGER_AGENTS):
+        machine = f"fed-{i:04d}"
+        run = agent_records(FED_RECORDS_PER_AGENT, t_base)
+        if owner_of(machine, list(FED_PEERS)) == FED_PEERS[0]:
+            phase1[FED_PEERS[0]].append((machine, encode_frames(pb, wire, run[:half]), half))
+            phase2.append((machine, encode_frames(pb, wire, run[half - FED_OVERLAP:]),
+                           FED_RECORDS_PER_AGENT))
+        else:
+            phase1[FED_PEERS[1]].append((machine, encode_frames(pb, wire, run),
+                                         FED_RECORDS_PER_AGENT))
+    return phase1, phase2
+
+
+def p95(xs: list) -> float:
+    return statistics.quantiles(xs, n=20)[-1] if len(xs) >= 2 else max(xs)
+
+
+def peer_row(view: dict, peer_id: str) -> dict:
+    return next(p for p in view["peers"] if p["peer_id"] == peer_id)
+
+
+def phase_federation(workdir: Path, smi_line: str, lib: Path) -> dict:
+    """Manager federation on the card's host: two ``python -m gpud_tpu_torch
+    manager serve --peer-id ... --peers ...`` children, the fleet split by
+    the rendezvous hash, the daemon enrolled with both (its owner first),
+    the victim SIGKILLed mid-load; gated on zero loss, a replica equal to
+    the victim's journal, adoption within FED_ADOPT_MAX_S, the daemon failed
+    over with both Xids in the survivor's pane."""
+    t_phase = time.perf_counter()
+    w = workdir / "federation"
+    w.mkdir()
+    data_root = Path(tempfile.mkdtemp(prefix="chip_smoke_federation_",
+                                      dir=manager_data_root(w)))
+    try:
+        return federation_run(w, data_root, smi_line, lib, t_phase)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+
+
+def federation_run(w: Path, data_root: Path, smi_line: str, lib: Path, t_phase: float) -> dict:
+    import signal
+
+    from gpud_tpu_torch.client.v1 import Client
+    from gpud_tpu_torch.manager.peers import owner_of
+    from gpud_tpu_torch.session import wire
+    from gpud_tpu_torch.session.v2 import session_pb2 as pb
+
+    victim_id, survivor_id = FED_PEERS
+    rec: dict = {"card": smi_line, "agents": MANAGER_AGENTS,
+                 "records_per_agent": FED_RECORDS_PER_AGENT, "overlap": FED_OVERLAP,
+                 "batch": MANAGER_BATCH, "shards": MANAGER_SHARDS, "senders": MANAGER_SENDERS,
+                 "cadence": dict(zip(FED_CADENCE[::2], FED_CADENCE[1::2])),
+                 "journal_fs": fs_type(data_root)}
+    ports = {pid: (free_port(), free_port()) for pid in FED_PEERS}
+    specs = [f"{pid}=http://127.0.0.1:{http}|127.0.0.1:{grpc}" for pid, (http, grpc) in ports.items()]
+    peer_flags = tuple(x for spec in specs for x in ("--peers", spec))
+    mgrs: dict = {}
+    daemon = None
+    clients: list = []
+    try:
+        for pid in FED_PEERS:
+            mgrs[pid] = ManagerChild(w, data_root / pid, pid, ports=ports[pid],
+                                     extra=("--peer-id", pid, *peer_flags, *FED_CADENCE))
+        victim, survivor = mgrs[victim_id], mgrs[survivor_id]
+        rec["ready_s"] = {pid: m.ready_s for pid, m in mgrs.items()}
+        vc, sc = Client(victim.endpoint, timeout=30), Client(survivor.endpoint, timeout=30)
+        clients += [vc, sc]
+        line("federation", f"{victim_id} (pid {victim.proc.pid}) and {survivor_id} (pid "
+                           f"{survivor.proc.pid}) peered, ready in "
+                           f"{json.dumps({k: round(v, 3) for k, v in rec['ready_s'].items()})} s")
+
+        t_enc = time.perf_counter()
+        phase1, phase2 = fed_frames(pb, wire, time.time())
+        rec["encode_s"] = time.perf_counter() - t_enc
+        rec["cohorts"] = {pid: len(phase1[pid]) for pid in FED_PEERS}
+
+        # the daemon, owned by the victim, with both managers as its peers
+        machine = next(m for m in (f"{MANAGER_AGENT}-fed-{k}" for k in range(64))
+                       if owner_of(m, list(FED_PEERS)) == victim_id)
+        daemon = DaemonChild(w / "agent_fed", victim.endpoint, "v1", "", machine, lib,
+                             peers=tuple(s.split("|")[0] for s in specs))
+        t_inject = inject_fault(victim.endpoint, machine, XID79)
+        series = until(lambda: unhealthy_in_pane(sc, machine),
+                       "the Xid 79 never reached the survivor's federated pane")
+        rec["xid79_to_survivor_pane_ms"] = (time.perf_counter() - t_inject) * 1e3
+        row = next(a for a in sc._req("GET", "/v1/fleet/agents", params={"limit": 500})["agents"]
+                   if a["agent"] == machine)
+        if row.get("peer") != victim_id:
+            raise AssertionError(f"the daemon's row in the survivor's pane: {row}")
+        rec["xid79_series"] = series
+
+        # phase 1: each cohort to its owner, the survivor's pane polled
+        load1 = drive_fleet(victim.grpc_port, phase1[victim_id], survivor.endpoint,
+                            senders=MANAGER_SENDERS // 2,
+                            cohorts=((survivor.grpc_port, phase1[survivor_id],
+                                      MANAGER_SENDERS - MANAGER_SENDERS // 2),),
+                            polls=(("/v1/fleet/rollup", None),))
+        rec["phase1"] = {"records": load1["records"], "s": load1["elapsed_s"],
+                         "records_per_s": load1["records_per_s"]}
+        pane_live_ms = load1["cold_ms"]
+
+        def pane_read(samples):
+            # a read of the survivor's federated rollup, timed, while the
+            # load's own reads number under FED_MIN_PANE_READS (the bench
+            # reads on past its load for a sample set too)
+            if len(samples) >= FED_MIN_PANE_READS:
+                return
+            t0 = time.perf_counter()
+            sc._req("GET", "/v1/fleet/rollup")
+            samples.append((time.perf_counter() - t0) * 1e3)
+
+        # the victim's journal replicated: the daemon paused so the journal
+        # is still when the victim dies (every acked record committed and
+        # shipped); the head and the watermark read from /v1/fleet/peers
+        daemon.proc.send_signal(signal.SIGSTOP)
+        t_rep, converged, quiet = time.perf_counter(), None, None
+        deadline = t_rep + 120
+        while True:
+            pane_read(pane_live_ms)  # both peers live: the bench reads on here too
+            head = vc._req("GET", "/v1/fleet/peers")["replication"]["journal_head_rowid"]
+            mark = sc._req("GET", "/v1/fleet/peers")["replica"]["watermarks"].get(victim_id, 0)
+            now = time.perf_counter()
+            if head and mark >= head:
+                converged = converged or now
+                quiet = quiet if quiet and quiet[0] == head else (head, now)
+                if now - quiet[1] >= FED_QUIET_S:
+                    break
+            else:
+                converged = quiet = None
+            if now > deadline:
+                raise AssertionError(f"replication: watermark {mark} of head {head}")
+            time.sleep(0.05)
+        rec["replication_s"] = converged - t_rep
+        rec["victim_journal_head"] = head
+        rec["vmrss_mb"] = {pid: m.vmrss_mb() for pid, m in mgrs.items()}
+        torch_maps = {pid: m.mapped_torch() for pid, m in mgrs.items()}
+
+        # the kill
+        t_kill = time.perf_counter()
+        victim.proc.kill()
+        victim.proc.wait(timeout=SERVER_STOP_S)
+        daemon.proc.send_signal(signal.SIGCONT)
+
+        def adopted():
+            row = peer_row(sc._req("GET", "/v1/fleet/peers"), victim_id)
+            return row if row["reachable"] is False and row["adopted"] is True else None
+
+        dead_row = until(adopted, "the survivor never adopted the victim's cohort", 60.0)
+        rec["adopt_s"] = time.perf_counter() - t_kill
+        con = sqlite3.connect(str(data_root / victim_id / "fleet.db"))
+        try:
+            victim_rows = con.execute(JOURNAL_ROWS).fetchall()
+        finally:
+            con.close()
+
+        # phase 2: the victim's cohort to the survivor, its pane polled
+        load2 = drive_fleet(survivor.grpc_port, phase2, survivor.endpoint,
+                            polls=(("/v1/fleet/rollup", None),))
+        rec["phase2"] = {"records": len(phase2) * (FED_RECORDS_PER_AGENT // 2 + FED_OVERLAP),
+                         "s": load2["elapsed_s"]}
+        failover_ms, pane_dead_ms = load2["agent_ms"], load2["cold_ms"]
+
+        # the daemon's breaker takes it to the survivor; a second Xid there
+        until(lambda: pane_read(pane_dead_ms) or any(
+            m["machine_id"] == machine for m in sc._req("GET", "/v1/machines")["machines"]),
+              "the daemon never connected to the survivor", 90.0)
+        rec["kill_to_daemon_at_survivor_s"] = time.perf_counter() - t_kill
+        t_inject = inject_fault(survivor.endpoint, machine, XID48)
+
+        def xids():
+            hist = sc._req("GET", f"/v1/fleet/agents/{machine}/history", params={"limit": 1000})
+            names = {(r["payload"] or {}).get("name") for r in hist["records"]
+                     if r["kind"] == "event" and (r["payload"] or {}).get("component") == ERR_KMSG}
+            return names if {XID_79, XID_48} <= names else None
+
+        rec["xid_events"] = sorted(until(xids, "both Xids never reached the survivor's pane"))
+        rec["xid48_to_survivor_pane_ms"] = (time.perf_counter() - t_inject) * 1e3
+
+        pane = sc._req("GET", "/v1/fleet/rollup")
+        dead = peer_row(pane, victim_id)
+        if pane.get("federated") is not True or pane["agents"] != MANAGER_AGENTS + 1 or \
+                dead["reachable"] is not False or dead["adopted"] is not True:
+            raise AssertionError(f"the survivor's final pane: agents {pane.get('agents')}, "
+                                 f"peers {pane.get('peers')}")
+        peers_cli, rec["fleet_peers_cli_ms"] = manager_cli("fleet", "peers", "--endpoint",
+                                                           survivor.endpoint)
+        mine, rec["fleet_agents_peer_cli_ms"] = manager_cli(
+            "fleet", "agents", "--peer", survivor_id, "--limit", "5000", "--endpoint",
+            survivor.endpoint)
+        if peer_row(peers_cli, victim_id)["adopted"] is not True or \
+                mine["filtered"] != len(mine["agents"]) or not mine["agents"]:
+            raise AssertionError(f"fleet peers / fleet agents --peer: {peers_cli}, "
+                                 f"{mine.get('filtered')}")
+        rec["survivor_rendezvous"] = peers_cli["rendezvous"]
+        rec["survivor_rows_filtered"] = mine["filtered"]
+        rec["vmrss_end_mb"] = survivor.vmrss_mb()
+        torch_maps[survivor_id] += survivor.mapped_torch()
+        child = daemon.finish()
+        rc, rec["sigterm_s"], report = survivor.terminate()
+    finally:
+        for c in clients:
+            c.close()
+        if daemon is not None:
+            daemon.kill()
+        for m in mgrs.values():
+            m.kill()
+            m.err.close()
+    if rc != 0 or report is None:
+        raise AssertionError(f"survivor: SIGTERM exit {rc}: {survivor.log()}")
+    if report["torch_loaded"] or any(torch_maps.values()):
+        raise AssertionError(f"torch in a manager: {report['torch_loaded']} {torch_maps}")
+    ex = report["executor"]
+    rec["executor"] = {k: ex[k] for k in ("accepted", "dropped", "errors")}
+    rec["writer"] = report["writer"]
+    rec["federation_stats"] = report["federation"]
+    if sum(ex["dropped"]) or ex["errors"]:
+        raise AssertionError(f"survivor executor {ex}")
+
+    # zero loss and the replica, read from the survivor's journal
+    con = sqlite3.connect(str(data_root / survivor_id / "fleet.db"))
+    try:
+        fed = dict(con.execute("SELECT agent, COUNT(*) FROM tpud_fleet_journal_v0_1 "
+                               "WHERE agent LIKE 'fed-%' GROUP BY agent"))
+        keys = {k for (k,) in con.execute(
+            "SELECT dedupe_key FROM tpud_fleet_journal_v0_1 WHERE agent = ?", (machine,))}
+        replica_rows = con.execute(REPLICA_ROWS, (victim_id,)).fetchall()
+    finally:
+        con.close()
+    if len(fed) != MANAGER_AGENTS or set(fed.values()) != {FED_RECORDS_PER_AGENT}:
+        raise AssertionError(f"zero loss: {len(fed)} fed agents, {sorted(set(fed.values()))} "
+                             f"records each")
+    lost = sorted(k for seq, _ts, _kind, k, *_ in child["journal"]
+                  if seq <= child["outbox"]["acked_seq"] and k not in keys)
+    if lost:
+        raise AssertionError(f"the daemon's acked records missing at the survivor: {lost[:5]}")
+    if replica_rows != victim_rows:
+        raise AssertionError(f"the replica ({len(replica_rows)} rows) differs from the victim's "
+                             f"journal ({len(victim_rows)} rows)")
+    if rec["adopt_s"] > FED_ADOPT_MAX_S:
+        raise AssertionError(f"adoption took {rec['adopt_s']:.3f} s")
+    rec["zero_loss"] = {"fed_records": sum(fed.values()), "daemon_acked": child["outbox"]["acked_seq"]}
+    rec["replica_rows"] = len(replica_rows)
+    rec["daemon"] = {"machine_id": machine, "circuit": child["circuit"],
+                     "endpoint": child["session"]["endpoint"],
+                     "transitions": child["transitions"], "executor_calls": child["executor_calls"]}
+    rec["dead_row"] = dead_row
+    rec["p95_ms"] = {"pane_live": p95(pane_live_ms), "pane_dead": p95(pane_dead_ms),
+                     "failover": p95(failover_ms)}
+    rec["samples"] = {"pane_live": len(pane_live_ms), "pane_dead": len(pane_dead_ms),
+                      "failover": len(failover_ms)}
+    rec["max_ms"] = {"pane_live": max(pane_live_ms), "pane_dead": max(pane_dead_ms),
+                     "failover": max(failover_ms)}
+    rec["limits_ms"] = FED_LIMITS_MS
+    rec["phase_s"] = time.perf_counter() - t_phase
+    line("federation", f"phase 1: {load1['records']} records in {load1['elapsed_s']:.3f} s to "
+                       f"{rec['cohorts']}; replicated {rec['replication_s']:.3f} s after it "
+                       f"(head {head}); SIGKILL -> adopted in {rec['adopt_s']:.3f} s; phase 2: "
+                       f"{rec['phase2']['records']} records in {load2['elapsed_s']:.3f} s; the "
+                       f"daemon at {survivor_id} {rec['kill_to_daemon_at_survivor_s']:.3f} s after "
+                       f"the kill")
+    line("federation", f"zero loss: {rec['zero_loss']['fed_records']} fed records at the "
+                       f"survivor, the daemon's {child['outbox']['acked_seq']} acked records "
+                       f"kept; replica = the victim's journal ({len(victim_rows)} rows, every "
+                       f"column); both Xids {rec['xid_events']} in the survivor's pane")
+    line("federation", f"p95 ms {json.dumps({k: round(v, 3) for k, v in rec['p95_ms'].items()})} "
+                       f"(the bench's limits {json.dumps(FED_LIMITS_MS)}); VmRSS MB "
+                       f"{json.dumps({k: round(v, 1) for k, v in rec['vmrss_mb'].items()})}, "
+                       f"survivor at the end {rec['vmrss_end_mb']:.1f}; SIGTERM exit 0 in "
+                       f"{rec['sigterm_s']:.3f} s; no torch; phase {rec['phase_s']:.1f} s")
+    print(json.dumps({"federation": rec}), flush=True)
     return rec
 
 
@@ -4726,6 +5147,7 @@ def main() -> int:
         phase_session(workdir, smi, planes_on_peak)
         phase_server(workdir, smi, planes_on_peak, workdir / "native" / native.LIB_NAME)
         phase_manager(workdir, smi, workdir / "native" / native.LIB_NAME)
+        phase_federation(workdir, smi, workdir / "native" / native.LIB_NAME)
         phase_chaos(workdir, smi, workdir / "native" / native.LIB_NAME)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

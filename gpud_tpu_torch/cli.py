@@ -34,12 +34,13 @@ nouns (``--gpu-id``, Xid error names).
 
 ``manager serve`` runs the fleet manager (``gpud_tpu_torch/manager/
 control_plane.py``: v1 on ``--port``, v2 on ``--grpc-port``, the journal
-in ``--data-dir``, ``--shards`` ingest shards) and prints its endpoint as
+in ``--data-dir``, ``--shards`` ingest shards; with ``--peer-id`` and
+``--peers``, a member of a federated peer set) and prints its endpoint as
 one JSON line; ``manager machines`` and ``manager request ID METHOD``, and
-``fleet rollup|fabric|predict|agents|peers|history|traces``, ask a running
-manager over its operator API (``--endpoint``, ``--admin-token``), with
-``tpud``'s output, error text and exit codes. The federation flags of
-``tpud manager serve`` and ``fleet agents --peer`` are not ported.
+``fleet rollup|fabric|predict|agents|peers|history|traces`` (``agents
+--peer`` keeps one peer's cohort), ask a running manager over its operator
+API (``--endpoint``, ``--admin-token``), with ``tpud``'s output, error text
+and exit codes.
 """
 
 from __future__ import annotations
@@ -849,6 +850,7 @@ def cmd_manager(args) -> int:
             grpc_port=args.grpc_port,
             session_token=args.session_token or None,
             admin_token=args.admin_token or None,
+            instance_id=args.peer_id or None,
             data_dir=args.data_dir or None,
             shards=args.shards or None,
         )
@@ -860,6 +862,37 @@ def cmd_manager(args) -> int:
         for sig in (signal.SIGINT, signal.SIGTERM):
             signal.signal(sig, lambda *_: stop.set())
         cp.start()
+        if args.peers:
+            # HA tier (docs/fleet.md "Federation & failover"): join the
+            # peer set. The knob defaults mirror Config.federation_* —
+            # the daemon-side dataclass is the documented reference for
+            # these, even though the manager is configured by flags
+            defaults = cfgmod.Config()
+            cp.attach_peers(
+                args.peer_id or cp.instance_id,
+                list(args.peers),
+                replication_interval=(
+                    args.replication_interval
+                    if args.replication_interval > 0
+                    else defaults.federation_replication_interval_seconds
+                ),
+                probe_interval=(
+                    args.probe_interval if args.probe_interval > 0
+                    else defaults.federation_probe_interval_seconds
+                ),
+                fanout_timeout=(
+                    args.fanout_timeout if args.fanout_timeout > 0
+                    else defaults.federation_fanout_timeout_seconds
+                ),
+                dead_after_probes=(
+                    args.dead_after_probes if args.dead_after_probes > 0
+                    else defaults.federation_dead_after_probes
+                ),
+                auto_adopt=(
+                    defaults.federation_auto_adopt
+                    and not args.no_auto_adopt
+                ),
+            )
         print(
             json.dumps(
                 {
@@ -906,6 +939,17 @@ def cmd_fleet(args) -> int:
             data = c.get_fleet_predict(args.top)
         elif args.fleet_cmd == "agents":
             data = c.get_fleet_agents(args.offset, args.limit)
+            if args.peer:
+                # cohort placement view: keep only rows the named peer
+                # owns. Rows carry "peer" on federated managers; on a
+                # standalone manager the filter matches nothing
+                rows = [
+                    a for a in data.get("agents", [])
+                    if a.get("peer", "") == args.peer
+                ]
+                data["agents"] = rows
+                data["peer_filter"] = args.peer
+                data["filtered"] = len(rows)
         elif args.fleet_cmd == "history":
             data = c.get_fleet_history(args.machine_id, since=args.since or None,
                                        limit=args.limit, offset=args.offset)
@@ -1227,6 +1271,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: 8; agents hash to shards by stable "
                          "crc32 slots, so this is safe to change between "
                          "restarts)")
+    ms.add_argument("--peer-id", default="",
+                    help="stable peer id in the manager peer set (also "
+                         "used as instance_id; required with --peers)")
+    ms.add_argument("--peers", action="append", default=[],
+                    metavar="ID=ENDPOINT[|GRPC]",
+                    help="full peer map incl. this manager's own entry; "
+                         "repeatable. Enables federation (docs/fleet.md)")
+    ms.add_argument("--replication-interval", type=float, default=0.0,
+                    help="journal replication tick seconds (0 = "
+                         "federation_replication_interval_seconds default)")
+    ms.add_argument("--probe-interval", type=float, default=0.0,
+                    help="peer health probe seconds (0 = "
+                         "federation_probe_interval_seconds default)")
+    ms.add_argument("--fanout-timeout", type=float, default=0.0,
+                    help="per-peer scatter-gather seconds (0 = "
+                         "federation_fanout_timeout_seconds default)")
+    ms.add_argument("--dead-after-probes", type=int, default=0,
+                    help="consecutive failed probes before a peer is "
+                         "declared dead (0 = federation_dead_after_probes "
+                         "default)")
+    ms.add_argument("--no-auto-adopt", action="store_true",
+                    help="never auto-adopt a dead peer's replicated "
+                         "cohort (overrides federation_auto_adopt)")
     ms.set_defaults(fn=cmd_manager)
     mm = msub.add_parser("machines", help="list connected agents")
     mm.add_argument("--endpoint", default="http://127.0.0.1:15135")
@@ -1269,6 +1336,9 @@ def build_parser() -> argparse.ArgumentParser:
     fa = fsub.add_parser("agents", help="paginated per-agent rollups")
     fa.add_argument("--offset", type=int, default=0)
     fa.add_argument("--limit", type=int, default=100)
+    fa.add_argument("--peer", default="",
+                    help="only agents owned by this peer id (cohort "
+                         "placement view; federated managers only)")
     _fleet_common(fa)
     fpe = fsub.add_parser(
         "peers",

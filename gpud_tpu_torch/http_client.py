@@ -1,12 +1,14 @@
 """HTTP requests on the standard library (``http.client``), for the
-session's v1 streams and the login post.
+session's v1 streams, the login post and the manager federation's fan-out.
 
-The reference package makes these requests with ``requests``; a host may
-lack that package, and the daemon's memory grows with every import. This
-module gives the two call shapes those callers need — a POST whose answer
-is read as a stream, and a JSON POST — with ``requests``' error contract: a
-non-2xx answer raises ``HTTPStatusError`` with the message
-``raise_for_status()`` gives, and the status as an attribute.
+The reference package makes these requests with ``requests`` (and the
+fan-out with ``urllib.request``); a host may lack that package, and the
+daemon's memory grows with every import. This module gives the three call
+shapes those callers need — a POST whose answer is read as a stream, a
+JSON POST and a JSON GET — with ``requests``' error contract: a non-2xx
+answer raises ``HTTPStatusError`` with the message ``raise_for_status()``
+gives, and the status as an attribute. No proxy variable is read: every
+request goes to the host its URL names.
 """
 
 from __future__ import annotations
@@ -97,6 +99,22 @@ def post_json(url: str, body: dict, timeout: float) -> dict:
         connect_timeout=timeout, read_timeout=timeout,
     )
     try:
+        return json.loads(resp.read().decode("utf-8"))
+    finally:
+        conn.close()
+
+
+def get_json(url: str, headers: Dict[str, str], timeout: float) -> dict:
+    """GET ``url`` and return the decoded JSON answer; the connect and each
+    read take at most ``timeout`` (``urllib.request.urlopen(req,
+    timeout=timeout)``). Raises ``HTTPStatusError`` on a non-2xx answer and
+    ``OSError`` on a transport failure."""
+    conn, path = _connection(url, timeout)
+    try:
+        conn.request("GET", path, headers=headers)
+        resp = conn.getresponse()
+        if resp.status >= 400:
+            raise HTTPStatusError(resp.status, resp.reason, url)
         return json.loads(resp.read().decode("utf-8"))
     finally:
         conn.close()

@@ -34,9 +34,12 @@ for a slot. Every wait is bounded, so ``stop`` never waits on a stuck
 reader. ``grpc`` is imported only when v2 starts; the manager imports no
 ``torch``.
 
-Federation (``attach_peers``, the peer set, journal replication) is not
-ported: ``federation`` stays None, as on the reference's standalone
-manager, and ``/v1/fleet/peers`` answers its standalone shape.
+Federation (``attach_peers``, after ``start()``) joins a peer set
+(``manager/peers.py``, ``manager/federation.py``): the journal ships to the
+ring successor, a dead predecessor's replicated cohort is adopted, and the
+``/v1/fleet/*`` panes fan out to every live peer unless ``?scope=local``.
+Until then ``federation`` is None and ``/v1/fleet/peers`` answers the
+standalone shape.
 
 Run: ``python -m gpud_tpu_torch manager serve`` (cli.py) or
 ``ControlPlane().start()``.
@@ -383,18 +386,73 @@ class ControlPlane:
         # reader threads enqueue, shard workers journal + ack
         self.ingest_executor = ShardIngestExecutor(self.shards)
         self._scheduler = None
-        # the peer federation tier is not ported: a standalone manager
+        # HA tier (manager/federation.py): None until attach_peers().
+        # Specs can't be known at construction when ports are dynamic,
+        # so federation always binds late
         self.federation = None
         # rate limiter for the mid-batch-abandon warning, per machine
         self._abandon_warn_ts: Dict[str, float] = {}
+
+    # -- federation --------------------------------------------------------
+    def attach_peers(
+        self,
+        peer_id: str,
+        peer_specs: List[str],
+        *,
+        replication_interval: Optional[float] = None,
+        probe_interval: Optional[float] = None,
+        fanout_timeout: Optional[float] = None,
+        dead_after_probes: Optional[int] = None,
+        auto_adopt: bool = True,
+        ship_batch: Optional[int] = None,
+        redeliver_after: Optional[float] = None,
+    ):
+        """Join a peer set (manager/federation.py). ``peer_specs`` must
+        include this manager's own ``peer_id=endpoint[|grpc]`` entry.
+        Call after start() — peer addresses usually aren't known until
+        every manager has bound its ports."""
+        from gpud_tpu_torch.manager.federation import FederationPlane
+        from gpud_tpu_torch.manager.peers import PeerSet, parse_peer_spec
+
+        if self.federation is not None:
+            raise RuntimeError("peers already attached")
+        if self._scheduler is None:
+            raise RuntimeError("attach_peers() requires a started manager")
+        descriptors = [parse_peer_spec(s) for s in peer_specs]
+        kwargs = {}
+        if dead_after_probes is not None:
+            kwargs["dead_after_probes"] = dead_after_probes
+        peerset = PeerSet(peer_id, descriptors, **kwargs)
+        fed_kwargs = {"auto_adopt": auto_adopt}
+        for name, val in (
+            ("replication_interval", replication_interval),
+            ("probe_interval", probe_interval),
+            ("fanout_timeout", fanout_timeout),
+            ("ship_batch", ship_batch),
+            ("redeliver_after", redeliver_after),
+        ):
+            if val is not None:
+                fed_kwargs[name] = val
+        self.federation = FederationPlane(
+            peerset, self.rollup, self.db, self.writer,
+            session_token=self.session_token,
+            admin_token=self.admin_token,
+            **fed_kwargs,
+        )
+        self.federation.start(self._scheduler)
+        logger.info(
+            "federation up: self=%s ring=%s", peer_id, peerset.ring
+        )
+        return self.federation
 
     # -- registry ----------------------------------------------------------
     def _register(self, handle: AgentHandle) -> None:
         # point the transport's outbox hook at the rollup store before
         # the handle is visible, so the very first frame is journaled.
         # Peer replication streams (machine_id "peer:<id>") journal into
-        # the replica store of a federated manager instead; a standalone
-        # manager takes them as agents, as the reference's does
+        # the replica store instead — a live peer's cohort must never
+        # leak into this manager's own pane. A standalone manager takes
+        # them as agents, as the reference's does
         from gpud_tpu_torch.manager.federation import PEER_MACHINE_PREFIX
 
         fed = self.federation
@@ -696,12 +754,24 @@ class ControlPlane:
             return default
         return caster(raw)
 
+    def _fleet_pane(self, kind: str, local_fn, params: dict, scope: str):
+        """Run one local pane read and, when federated and the caller
+        didn't pin ``?scope=local``, widen it across live peers. Every
+        inter-peer fan-out pins ``scope=local`` so depth stops at one."""
+        local = local_fn()
+        fed = self.federation
+        if fed is None or scope == "local":
+            return local
+        return fed.federate(kind, local, params)
+
     def _fleet_rollup_route(self, request: Request) -> Response:
         """Fleet-wide rollup aggregates (availability, MTTR/MTBF,
-        flapping, remediation outcomes)."""
+        flapping, remediation outcomes); one pane across all peers
+        unless ``?scope=local``."""
         if not self._check_admin(request):
             return _text("unauthorized", 401)
-        return _json(self.rollup.fleet_rollup())
+        scope = request.query.get("scope", "")
+        return _json(self._fleet_pane("rollup", self.rollup.fleet_rollup, {}, scope))
 
     def _fleet_fabric_route(self, request: Request) -> Response:
         """Fleet-wide fabric matrix rollup: per-agent link aggregates
@@ -713,7 +783,9 @@ class ControlPlane:
             since = self._q_num(request, "since", 0.0, float)
         except ValueError:
             return _text("since must be a number", 400)
-        return _json(self.rollup.fleet_fabric(since))
+        scope = request.query.get("scope", "")
+        return _json(self._fleet_pane(
+            "fabric", lambda: self.rollup.fleet_fabric(since), {"since": since}, scope))
 
     def _fleet_predict_route(self, request: Request) -> Response:
         """Fleet-ranked prediction pane: top-K (agent, component) rows
@@ -724,7 +796,9 @@ class ControlPlane:
             top = self._q_num(request, "top", 20, int)
         except ValueError:
             return _text("top must be an integer", 400)
-        return _json(self.rollup.fleet_predict(top))
+        scope = request.query.get("scope", "")
+        return _json(self._fleet_pane(
+            "predict", lambda: self.rollup.fleet_predict(top), {"top": top}, scope))
 
     def _fleet_agents_route(self, request: Request) -> Response:
         """One page of per-agent rollups (``?offset=&limit=``)."""
@@ -735,7 +809,10 @@ class ControlPlane:
             limit = self._q_num(request, "limit", 50, int)
         except ValueError:
             return _text("offset/limit must be integers", 400)
-        return _json(self.rollup.agents_page(offset, limit))
+        scope = request.query.get("scope", "")
+        return _json(self._fleet_pane(
+            "agents", lambda: self.rollup.agents_page(offset, limit),
+            {"offset": offset, "limit": limit}, scope))
 
     def _fleet_history_route(self, request: Request) -> Response:
         """Journaled record timeline for one agent
@@ -749,7 +826,15 @@ class ControlPlane:
             offset = self._q_num(request, "offset", 0, int)
         except ValueError:
             return _text("since/limit/offset must be numbers", 400)
-        return _json(self.rollup.history(agent_id, since, limit, offset))
+        scope = request.query.get("scope", "")
+        local = self.rollup.history(agent_id, since, limit, offset)
+        fed = self.federation
+        if fed is None or scope == "local":
+            return _json(local)
+        # history is single-owner data: proxy to the rendezvous owner
+        # when the journal doesn't know the agent locally
+        return _json(fed.federate_history(
+            agent_id, local, {"since": since, "limit": limit, "offset": offset}))
 
     def _fleet_traces_route(self, request: Request) -> Response:
         """Fleet records stitched to one agent-side check trace
@@ -763,18 +848,26 @@ class ControlPlane:
             limit = self._q_num(request, "limit", 200, int)
         except ValueError:
             return _text("limit must be an integer", 400)
-        return _json(self.rollup.traces(cid, limit))
+        scope = request.query.get("scope", "")
+        return _json(self._fleet_pane(
+            "traces", lambda: self.rollup.traces(cid, limit),
+            {"correlation_id": cid, "limit": limit}, scope))
 
     def _fleet_peers_route(self, request: Request) -> Response:
-        """The peer map; a standalone manager answers ``federation:
-        false`` (200, not 404) so probes and the CLI work unchanged."""
+        """The peer map itself: ring order, rendezvous cohort counts,
+        replication + replica watermarks, per-peer health. Standalone
+        managers answer ``federation: false`` (200, not 404) so probes
+        and the CLI work unchanged against either shape."""
         if not self._check_admin(request):
             return _text("unauthorized", 401)
-        return _json({
-            "federation": False,
-            "instance_id": self.instance_id,
-            "peers": [],
-        })
+        fed = self.federation
+        if fed is None:
+            return _json({
+                "federation": False,
+                "instance_id": self.instance_id,
+                "peers": [],
+            })
+        return _json(fed.peers_view())
 
     def _metrics_route(self, _request: Request) -> Response:
         """Federated Prometheus exposition: manager registry + bounded
@@ -1067,6 +1160,12 @@ class ControlPlane:
             return
         self._stopped = True
         self._stopping.set()
+        # federation first: the shipper's session threads reconnect-loop
+        # against the successor, and the fan-out pool must stop taking
+        # work before the listener beneath it does
+        if self.federation is not None:
+            self.federation.stop()
+            self.federation = None
         self.drain("manager stopping")
         if self._grpc_server is not None:
             self._grpc_server.stop(grace=1.0)

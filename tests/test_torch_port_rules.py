@@ -126,6 +126,7 @@ def test_importing_the_port_loads_no_jax_module():
     "gpud_tpu_torch.manager.shard",
     "gpud_tpu_torch.manager.rollup",
     "gpud_tpu_torch.manager.exposition",
+    "gpud_tpu_torch.manager.peers",
     "gpud_tpu_torch.manager.federation",
     "gpud_tpu_torch.manager.control_plane",
     # the chaos harness
@@ -507,7 +508,7 @@ def test_cuda_sources_are_packaged():
 SERVER_FILES = [f"gpud_tpu_torch/{m}.py" for m in (
     "server/__init__", "server/tls", "server/app", "server/server", "server/listener",
     "client/__init__", "client/v1", "manager/systemd", "manager/shard", "manager/rollup",
-    "manager/exposition", "manager/federation", "manager/control_plane")]
+    "manager/exposition", "manager/peers", "manager/federation", "manager/control_plane")]
 
 
 @pytest.mark.parametrize("path", SERVER_FILES)
@@ -579,13 +580,16 @@ def test_a_tls_server_makes_its_certificate_without_loading_cryptography(tmp_pat
 
 
 def test_the_manager_loads_no_torch_and_grpc_only_when_v2_starts():
-    # torch is made unimportable: importing the control plane, ``manager
-    # serve --help`` and a manager started and stopped never reach it; grpc
-    # loads only in the v2 start
+    # torch is made unimportable: importing the control plane and the
+    # federation, ``manager serve --help``, a manager started and stopped,
+    # and two managers peered (v1 streams first, then v2 with grpc
+    # targets) never reach it; grpc loads only in a v2 start: a manager's
+    # listener or a peer's replication stream
     code = textwrap.dedent("""
-        import json, runpy, sys
+        import json, runpy, sys, tempfile
         sys.modules["torch"] = None
         import gpud_tpu_torch.manager.control_plane as cpm
+        import gpud_tpu_torch.manager.federation, gpud_tpu_torch.manager.peers
         grpc_at_import = "grpc" in sys.modules
         sys.argv = ["gpud_tpu_torch", "manager", "serve", "--help"]
         try:
@@ -594,9 +598,27 @@ def test_the_manager_loads_no_torch_and_grpc_only_when_v2_starts():
             code = e.code
         grpc_after_help = "grpc" in sys.modules
         cp = cpm.ControlPlane()
+        cp._start_grpc = lambda: None  # v1 only: the listener loads no grpc
         cp.start()
+        peer = cpm.ControlPlane()
+        peer._start_grpc = lambda: None
+        peer.start()
+        specs = [f"m-a={cp.endpoint}", f"m-b={peer.endpoint}"]
+        for pid, m in (("m-a", cp), ("m-b", peer)):
+            m.attach_peers(pid, specs, replication_interval=0.1, probe_interval=600)
+        grpc_after_v1_peers = "grpc" in sys.modules
         cp.stop()
-        print(json.dumps([code, grpc_at_import, grpc_after_help, "grpc" in sys.modules,
+        peer.stop()
+        v2 = [cpm.ControlPlane(), cpm.ControlPlane()]
+        for m in v2:
+            m.start()
+        specs = [f"m-{n}={m.endpoint}|127.0.0.1:{m.grpc_port}" for n, m in enumerate(v2)]
+        for n, m in enumerate(v2):
+            m.attach_peers(f"m-{n}", specs, replication_interval=0.1, probe_interval=600)
+        for m in v2:
+            m.stop()
+        print(json.dumps([code, grpc_at_import, grpc_after_help, grpc_after_v1_peers,
+                          "grpc" in sys.modules,
                           sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("torch", "jax", "gpud_tpu",
                                                         "aiohttp", "requests"))]))
@@ -605,5 +627,5 @@ def test_the_manager_loads_no_torch_and_grpc_only_when_v2_starts():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
-    assert "--shards" in proc.stdout
-    assert json.loads(lines[-1]) == [0, False, False, True, ["torch"]]
+    assert "--shards" in proc.stdout and "--peers" in proc.stdout
+    assert json.loads(lines[-1]) == [0, False, False, False, True, ["torch"]]
