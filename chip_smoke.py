@@ -19,6 +19,12 @@ Phases, each printing its own lines:
              seeded faults, scanned by ``fleet_scan`` on the default device;
              it must launch the kernel exactly once, classify every seeded
              fault, agree with ``device="cpu"``, and the CLI must agree too;
+             then the split over several cards (``fleet_scan``'s
+             ``_classify_split``, which ``device=None`` takes on a host with
+             more than one card) with this card listed n = 1, 2 and 3 times
+             at L = 4609 (the day's links and one more, so the last block is
+             padded): the classes must equal one unsplit launch's exactly,
+             with n launches; ``torch.cuda.device_count()`` is printed;
 5. adapter - the device adapter and the GPU components on the card: NVML
              (``gpu/nvml.py`` through ``NVMLBackend``) against nvidia-smi
              (name, UUID, PCI bus id, memory total, driver, enforced power
@@ -233,7 +239,26 @@ Phases, each printing its own lines:
              failover seconds, VmRSS; printed as the ``{"federation": ...}``
              line.
 
-The ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}``,
+16. tools  - the port's static gates and operator files, each as a child:
+             ``python -m gpud_tpu_torch.tools.lint_all --json`` (the nine
+             lints: metrics, storage, openapi, guard, parity, race wiring,
+             flow, boundary, schema) must print ``[]`` and exit 0, with the
+             flow lint's discovered entrypoints by role;
+             ``gen_catalog_doc --check`` must exit 0 (docs/CATALOG_GPU.md
+             equal to a fresh render); ``helm_render`` of
+             deployments/helm/tpud-torch must give a DaemonSet running
+             ``python -m gpud_tpu_torch run`` on a GPU node pool; seconds
+             per child; printed as the ``{"tools": ...}`` line;
+17. race   - (after the chaos phase) ``python -m gpud_tpu_torch.tools.race``
+             as a child on NVML: the daemon and the fake plane with every
+             lock tracked by the lock-order detector, the switch interval at
+             10 us, over the nine short campaigns (the chaos phase runs the
+             four long ones). Gates: every campaign completes without a
+             runner error, the lock-order graph is acyclic, no
+             self-deadlock, no leaked non-daemon thread; its edges, wall
+             seconds and VmRSS printed as the ``{"race": ...}`` line.
+
+The ``{"tools": ...}``, ``{"race": ...}``, ``{"adapter": ...}``, ``{"health": ...}``, ``{"host": ...}``, ``{"daemon": ...}``,
 ``{"session": ...}``, ``{"server": ...}``, ``{"manager": ...}``, ``{"federation": ...}``,
 ``{"chaos": ...}`` and
 ``{"analytics": ...}`` lines come before the ``{"kernels": [...]}``
@@ -701,7 +726,41 @@ def phase_fleet(workdir: Path, hosts: int = HOSTS, T: int = T_DAY) -> dict:
               "host_to_device_s": t_h2d, "kernel_s": t_kernel,
               "classify_s": t_classify, "fleet_scan_total_s": t_main}
     line("fleet", "seconds by phase: " + json.dumps(phases))
-    return {"launches": launches, "phases": phases}
+    split = fleet_split(states, counters, valid)
+    return {"launches": launches, "phases": phases, "split": split}
+
+
+SPLIT_COUNTS = (1, 2, 3)
+
+
+def fleet_split(states: np.ndarray, counters: np.ndarray, valid: np.ndarray) -> dict:
+    """The scan split over n cards (``fleet_scan._classify_split``) with
+    this card listed n times, at the day's links and one more (L = 4609,
+    a multiple of none of 2 and 3 but 1): the classes must equal one
+    unsplit launch's exactly, with n launches."""
+    n_cards = torch.cuda.device_count()
+    line("fleet", f"torch.cuda.device_count() = {n_cards}")
+    extra = len(states) // 2  # a link of the day, again, in the last block
+    states, counters, valid = (np.concatenate([x, x[extra:extra + 1]])
+                               for x in (states, counters, valid))
+    L = len(states)
+    # the comparison's own launch, before the counts are reset
+    whole = classify_links(scan_links_packed(*packed_from_numpy(
+        states, counters, valid, "cuda"))).cpu().numpy()
+    card = torch.device("cuda", 0)
+    rec = {"device_count": n_cards, "L": L, "runs": {}}
+    for n in SPLIT_COUNTS:
+        scan_links_packed.launches = 0
+        classes, secs = sync_time(lambda: fleet_scan_mod._classify_split(
+            [card] * n, states, counters, valid))
+        launches = scan_links_packed.launches
+        equal = bool(np.array_equal(classes, whole))
+        rec["runs"][n] = {"launches": launches, "equal": equal, "pad": (-L) % n, "s": secs}
+        line("fleet", f"split over {n} card(s) at L = {L} (pad {(-L) % n}): {launches} "
+                      f"launches, classes equal to the unsplit call's: {equal}, {secs:.3f} s")
+        if launches != n or not equal:
+            raise AssertionError(f"split over {n}: {launches} launches, equal {equal}")
+    return rec
 
 
 # -- 5. the device adapter and the GPU components ---------------------------------
@@ -4756,6 +4815,105 @@ def phase_chaos(workdir: Path, smi_line: str, lib: Path) -> dict:
                              f"{ran.stderr}")
     return rec
 
+# -- 16. tools and 17. race ------------------------------------------------------
+
+TOOLS_CHART = "deployments/helm/tpud-torch"
+# the nine short campaigns; the chaos phase runs the four long ones
+# (manager-failover, precursor-ramp, session-outbox-replay,
+# session-reconnect-storm)
+RACE_CAMPAIGNS = ("fleet-predict-ramp", "fleet-rollup-storm", "flap-storm-retention",
+                  "ici-link-degrade", "ingest-storm-crash", "manager-kill-rebuild",
+                  "runtime-crash-mid-remediation", "session-disconnect-storm",
+                  "thermal-ici-cascade")
+
+
+def tool_child(*argv: str, timeout: float = 300, env=None):
+    """``python -m <argv>`` from the checkout's root: (process, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def phase_tools(smi_line: str) -> dict:
+    """The nine lints, the catalog doc's check and the chart's render, each
+    as a child; raises unless every one is clean."""
+    import yaml
+
+    rec = {"card": smi_line}
+    lint, rec["lint_all_s"] = tool_child("gpud_tpu_torch.tools.lint_all", "--json")
+    problems = json.loads(lint.stdout) if lint.stdout.strip() else None
+    rec["lint_all"] = {"rc": lint.returncode, "problems": problems}
+    flow, rec["flow_lint_s"] = tool_child("gpud_tpu_torch.tools.flow_lint")
+    counts = [ln for ln in flow.stdout.splitlines() if "entrypoints by role" in ln]
+    rec["flow_entrypoints"] = counts[0].split(": ", 2)[-1] if counts else None
+    cat, rec["catalog_check_s"] = tool_child("gpud_tpu_torch.tools.gen_catalog_doc", "--check")
+    rec["catalog_check"] = {"rc": cat.returncode, "out": cat.stdout.strip()}
+    chart, rec["chart_render_s"] = tool_child("gpud_tpu_torch.tools.helm_render", TOOLS_CHART)
+    docs = [d for d in yaml.safe_load_all(chart.stdout) if d] if chart.returncode == 0 else []
+    spec = docs[0]["spec"]["template"]["spec"] if docs else {}
+    ct = (spec.get("containers") or [{}])[0]
+    terms = spec.get("affinity", {}).get("nodeAffinity", {}).get(
+        "requiredDuringSchedulingIgnoredDuringExecution", {}).get("nodeSelectorTerms", [{}])
+    rec["chart"] = {"rc": chart.returncode, "kind": docs[0]["kind"] if docs else None,
+                    "command": ct.get("command", []) + ct.get("args", [])[:1],
+                    "node_affinity": [e["key"] for e in terms[0].get("matchExpressions", [])],
+                    "tolerations": [t["key"] for t in spec.get("tolerations", [])]}
+    line("tools", f"lint_all --json rc {lint.returncode}, {problems} in "
+                  f"{rec['lint_all_s']:.2f} s; flow entrypoints: {rec['flow_entrypoints']}; "
+                  f"gen_catalog_doc --check rc {cat.returncode} ({rec['catalog_check']['out']}); "
+                  f"chart {rec['chart']}")
+    print(json.dumps({"tools": rec}), flush=True)
+    if lint.returncode != 0 or problems != []:
+        raise AssertionError(f"lint_all: rc {lint.returncode}, {problems}, "
+                             f"{lint.stderr[-4000:]}")
+    if flow.returncode != 0 or not rec["flow_entrypoints"]:
+        raise AssertionError(f"flow_lint: rc {flow.returncode}, {flow.stderr[-4000:]}")
+    if cat.returncode != 0:
+        raise AssertionError(f"gen_catalog_doc --check: {cat.stderr}")
+    if rec["chart"]["kind"] != "DaemonSet" or \
+            rec["chart"]["command"] != ["python", "-m", "gpud_tpu_torch", "run"] or \
+            rec["chart"]["node_affinity"] != ["nvidia.com/gpu.present"]:
+        raise AssertionError(f"the chart: {rec['chart']}; {chart.stderr[-4000:]}")
+    return rec
+
+
+def phase_race(workdir: Path, smi_line: str, lib: Path) -> dict:
+    """``gpud_tpu_torch.tools.race`` over the nine short campaigns on NVML,
+    as a child; raises unless every gate holds."""
+    w = workdir / "race"
+    w.mkdir()
+    env = {k: v for k, v in os.environ.items() if k not in (
+        gpu_instance.ENV_MOCK_ALL_SUCCESS, gpu_instance.ENV_USE_TORCH, "TPUD_ENDPOINT",
+        "TPUD_TOKEN")}
+    env.update(TPUD_KMSG_FILE_PATH=str(w / "kmsg"), TPUD_NATIVE_LIB=str(lib),
+               TPUD_LISTEN_HOST="127.0.0.1")
+    proc, secs = tool_child("gpud_tpu_torch.tools.race", "--campaigns",
+                            ",".join(RACE_CAMPAIGNS), "--workdir", str(w),
+                            timeout=300, env=env)
+    for row in proc.stderr.splitlines():
+        if row.startswith("[race]"):
+            print(row, flush=True)
+    out = proc.stdout.splitlines()
+    if not out:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise AssertionError(f"the race harness exited {proc.returncode} with no record")
+    rec = {"card": smi_line, "child_s": secs, "rc": proc.returncode,
+           **json.loads(out[-1])["race"]}
+    line("race", f"{rec['completed']}/{rec['campaigns']} campaigns completed, expectations "
+                 f"{rec['expectations'][0]}/{rec['expectations'][1]} (not gated); "
+                 f"{rec['edges']} lock-order edges, {len(rec['cycles'])} cycles, "
+                 f"{len(rec['self_deadlocks'])} self-deadlocks, "
+                 f"{len(rec['leaked_nondaemon_threads'])} leaked threads; "
+                 f"{rec['wall_seconds']:.1f} s; VmRSS {rec['vmrss_mb']}")
+    print(json.dumps({"race": rec}), flush=True)
+    if proc.returncode != 0 or not rec["ok"] or rec["campaigns"] != len(RACE_CAMPAIGNS):
+        sys.stderr.write(proc.stderr[-8000:])
+        raise AssertionError(f"the race harness's gates failed: rc {proc.returncode}, "
+                             f"cycles {rec['cycles']}, self-deadlocks {rec['self_deadlocks']}, "
+                             f"leaked {rec['leaked_nondaemon_threads']}")
+    return rec
+
 # -- 8. analytics ---------------------------------------------------------------
 
 # the robust scorer at fleet scale: 2048 eight-GPU hosts (16384 GPUs) swept
@@ -5134,6 +5292,7 @@ def main() -> int:
     smi = phase_device()
     resources = phase_build()
     max_err = phase_kernel()
+    phase_tools(smi)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dbs_", dir=build_dir))
@@ -5149,6 +5308,7 @@ def main() -> int:
         phase_manager(workdir, smi, workdir / "native" / native.LIB_NAME)
         phase_federation(workdir, smi, workdir / "native" / native.LIB_NAME)
         phase_chaos(workdir, smi, workdir / "native" / native.LIB_NAME)
+        phase_race(workdir, smi, workdir / "native" / native.LIB_NAME)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     analytics = phase_analytics()
@@ -5162,7 +5322,9 @@ def main() -> int:
         "replaces": "gpud_tpu/ops/pallas_scan.py:48",
         "launches": fleet["launches"],
         "launches_by_path": {"fleet": fleet["launches"], "adapter": adapter["launches"],
-                             "daemon": daemon["packed_scan_launches"]},
+                             "daemon": daemon["packed_scan_launches"],
+                             **{f"split_{n}_cards": r["launches"]
+                                for n, r in fleet["split"]["runs"].items()}},
         "max_abs_err": max_err,
         "ms": day["ms"],
         "plain_ms": day["plain_ms"],

@@ -3,8 +3,10 @@
 Counterpart of ``gpud_tpu/fleet_scan.py``. Per-host daemons keep 14 days of
 per-link snapshots in their state DBs (``tpud_ici_snapshots_v0_1``, written
 by ``ICIStore``). An operator sweeps every host's history at once: the
-fleet's history packs into [L, T] arrays, one CUDA kernel scans every link
-(``ops/packed_scan.py``), and the health classes follow on the same device.
+fleet's history packs into [L, T] arrays, one CUDA kernel launch scans every
+link (``ops/packed_scan.py``), and the health classes follow on the same
+device; on a host with more than one card the links are split into one
+block per card, as the reference shards them over its mesh.
 
 Entry point: ``python -m gpud_tpu_torch fleet-scan host1.db host2.db ...``.
 Each DB is opened read-only; link names are prefixed with the DB's stem
@@ -27,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 from urllib.parse import quote
 
 import numpy as np
+import torch
 
 from gpud_tpu_torch.device import DeviceLike, resolve_device
 from gpud_tpu_torch.ops.packed_scan import packed_from_numpy, scan_links_packed
@@ -136,6 +139,47 @@ def load_fleet_history(
     return names, states, counters, valid, truncated
 
 
+def _scan_devices(device: DeviceLike) -> List[torch.device]:
+    """The devices a scan splits its links over: every visible card for
+    ``device=None`` on a host with more than one, else the one asked for."""
+    if device is None and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [resolve_device(device)]
+
+
+def _classify_split(
+    devices: List[torch.device],
+    states: np.ndarray,
+    counters: np.ndarray,
+    valid: np.ndarray,
+    flap_threshold: int = 3,
+    crc_threshold: int = 100,
+) -> np.ndarray:
+    """Health class of every link, the links split into one block per
+    device, as the reference shards them over its mesh.
+
+    L is padded to a multiple of ``len(devices)`` with all-invalid rows
+    (class 0, dropped after); block i of L/n rows is scanned and classified
+    on ``devices[i]`` (one kernel launch per card), and the classes are
+    gathered in link order. All blocks are launched before any is read.
+    """
+    n = len(devices)
+    L = states.shape[0]
+    pad = (-L) % n
+    if pad:
+        states, counters, valid = (np.pad(x, ((0, pad), (0, 0)))
+                                   for x in (states, counters, valid))
+    rows = (L + pad) // n
+    blocks = []
+    for i, dev in enumerate(devices):
+        part = slice(i * rows, (i + 1) * rows)
+        scan = scan_links_packed(*packed_from_numpy(
+            states[part], counters[part], valid[part], dev))
+        blocks.append(classify_links(
+            scan, flap_threshold=flap_threshold, crc_threshold=crc_threshold))
+    return torch.cat([b.cpu() for b in blocks])[:L].numpy()
+
+
 def fleet_scan(
     db_paths: List[str],
     window_seconds: float = DEFAULT_WINDOW_SECONDS,
@@ -145,13 +189,16 @@ def fleet_scan(
     device: DeviceLike = None,
 ) -> dict:
     """Scan the fleet's link history on ``device`` (the card by default;
-    ``"cpu"`` only on request).
+    ``"cpu"`` only on request). With ``device=None`` on a host with more
+    than one card, the links are split over every card
+    (:func:`_classify_split`).
 
     Returns {"links": {name: "healthy|degraded|unhealthy"},
              "summary": {...}, "devices": n, "window_seconds": S,
-             "truncated_links": [...]}; ``devices`` is 1 when a scan ran.
+             "truncated_links": [...]}; ``devices`` is the number of
+    devices the scan ran on, 0 when there was nothing to scan.
     """
-    dev = resolve_device(device)
+    devices = _scan_devices(device)
     names, states, counters, valid, truncated = load_fleet_history(
         db_paths, window_seconds, now=now
     )
@@ -166,11 +213,9 @@ def fleet_scan(
     if not names:
         return out
 
-    scan = scan_links_packed(*packed_from_numpy(states, counters, valid, dev))
-    classes = classify_links(
-        scan, flap_threshold=flap_threshold, crc_threshold=crc_threshold
-    ).tolist()
-    out["devices"] = 1
+    classes = _classify_split(devices, states, counters, valid,
+                              flap_threshold, crc_threshold).tolist()
+    out["devices"] = len(devices)
     for name, c in zip(names, classes):
         label = CLASS_NAMES[c]
         out["links"][name] = label

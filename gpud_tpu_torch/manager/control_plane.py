@@ -449,15 +449,13 @@ class ControlPlane:
     def _register(self, handle: AgentHandle) -> None:
         # point the transport's outbox hook at the rollup store before
         # the handle is visible, so the very first frame is journaled.
-        # Peer replication streams (machine_id "peer:<id>") journal into
-        # the replica store instead — a live peer's cohort must never
-        # leak into this manager's own pane. A standalone manager takes
-        # them as agents, as the reference's does
+        # Peer replication streams (machine_id "peer:<id>") choose their
+        # sink per frame (_peer_records), so a stream that connected
+        # before attach_peers reaches the replica once it is attached
         from gpud_tpu_torch.manager.federation import PEER_MACHINE_PREFIX
 
-        fed = self.federation
-        if handle.machine_id.startswith(PEER_MACHINE_PREFIX) and fed is not None:
-            handle.on_records = fed.replica_sink(handle.machine_id)
+        if handle.machine_id.startswith(PEER_MACHINE_PREFIX):
+            handle.on_records = self._peer_records
         else:
             handle.on_records = self.rollup.ingest
         handle.ingest_executor = self.ingest_executor
@@ -469,6 +467,18 @@ class ControlPlane:
         logger.info(
             "agent %s connected (%s)", handle.machine_id, handle.transport
         )
+
+    def _peer_records(self, machine_id: str, records) -> None:
+        """A peer's replicated rows journal into the replica store — a
+        live peer's cohort must never leak into this manager's own pane.
+        A standalone manager takes them as an agent's, as the reference's
+        does; a federated shipper sends none before this manager is
+        federated (ROADMAP C10)."""
+        fed = self.federation
+        if fed is None:
+            self.rollup.ingest(machine_id, records)
+        else:
+            fed.replica_sink(machine_id)(machine_id, records)
 
     def _unregister(self, handle: AgentHandle) -> None:
         # sample BEFORE mark_gone(): it enqueues a None wake sentinel,

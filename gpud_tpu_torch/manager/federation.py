@@ -31,15 +31,19 @@ own writer — so a replicated ack means "in the survivor's write-behind
 buffer", with the same bounded durability window a single manager's
 agent acks have (docs/fleet.md).
 
-Two differences from the reference, both by design. The receiver hands
+Three differences from the reference, all by design. The receiver hands
 every replicated row to its writer before the frame is acked: where the
 writer's bounded queue is full it waits for a drain, as the port's
 ``FleetRollupStore.ingest`` does, instead of dropping the tail and acking
-it all the same (ROADMAP C15, the twin of C12). The fan-out and the peer
-probes use the port's ``http_client`` instead of ``urllib.request``: the
-same URL, ``scope=local`` query, ``Authorization`` header and per-peer
-timeout, with no proxy variable read, so a proxy set on the host cannot
-route a fan-out to 127.0.0.1 elsewhere.
+it all the same (ROADMAP C15, the twin of C12). The plane ships on a
+connection only once the successor's ``/v1/fleet/peers`` says it is
+federated: a manager that has not yet run ``attach_peers`` takes a
+``peer:`` stream as an agent's, so rows shipped to it then would be acked
+into its own cohort and never reach its replica (ROADMAP C10). The fan-out
+and the peer probes use the port's ``http_client`` instead of
+``urllib.request``: the same URL, ``scope=local`` query, ``Authorization``
+header and per-peer timeout, with no proxy variable read, so a proxy set
+on the host cannot route a fan-out to 127.0.0.1 elsewhere.
 
 The module imports no ``torch``; ``grpc`` loads only when a shipper's
 session tries v2.
@@ -265,6 +269,7 @@ class JournalShipper:
         "_shipped": "_mu",
         "_frames": "_mu",
         "_redeliveries": "_mu",
+        "_connections": "_mu",
     }
 
     def __init__(
@@ -293,6 +298,7 @@ class JournalShipper:
         self._shipped = 0
         self._frames = 0
         self._redeliveries = 0
+        self._connections = 0
         self.session = Session(
             endpoint=peer.endpoint,
             machine_id=f"{PEER_MACHINE_PREFIX}{self_id}",
@@ -324,6 +330,14 @@ class JournalShipper:
             self._encoder = wire.DeltaEncoder()
             self._delivered = self._acked
             self._ack_progress_ts = self.time_fn()
+            self._connections += 1
+
+    @property
+    def connection(self) -> int:
+        """How many times the session has connected: names the current
+        connection, so a check made on one is not taken for the next."""
+        with self._mu:
+            return self._connections
 
     def on_ack(self, seq: int) -> None:
         """Cumulative ack from the peer; the watermark only advances."""
@@ -602,6 +616,7 @@ class FederationPlane:
         "_scatter_err": "_mu",
         "_adopts": "_mu",
         "_last_fanout": "_mu",
+        "_shipping_on": "_mu",
     }
 
     PATHS = {
@@ -645,6 +660,8 @@ class FederationPlane:
         self._scatter_err = 0
         self._adopts = 0
         self._last_fanout: Dict[str, Dict] = {}
+        # the shipper connection on which the successor was seen federated
+        self._shipping_on: Optional[int] = None
         self._pool = ThreadPoolExecutor(
             max_workers=max(2, min(8, len(peers.ring))),
             thread_name_prefix="tpud-mgr-fanout",
@@ -684,9 +701,32 @@ class FederationPlane:
 
     # -- replication -------------------------------------------------------
     def replicate_once(self) -> int:
-        if self.shipper is None:
+        if self.shipper is None or not self._successor_federated():
             return 0
         return self.shipper.tick()
+
+    def _successor_federated(self) -> bool:
+        """Whether the successor serves this connection as a peer's: its
+        ``/v1/fleet/peers`` says ``federation: true``, read once per
+        connection (ROADMAP C10). Until then nothing is shipped, so no row
+        is acked into the cohort of a manager that has not attached its
+        peers yet."""
+        shipper = self.shipper
+        if not shipper.session.connected:
+            return False
+        conn = shipper.connection
+        with self._mu:
+            if self._shipping_on == conn:
+                return True
+        try:
+            view = self._fetch(shipper.peer, self.PATHS["peers"], {})
+        except Exception:  # noqa: BLE001 — unreachable: ask again next tick
+            return False
+        if not isinstance(view, dict) or view.get("federation") is not True:
+            return False
+        with self._mu:
+            self._shipping_on = conn
+        return True
 
     def replica_sink(self, machine_id: str):
         """The ``on_records`` hook for a ``peer:`` transport handle."""

@@ -5,9 +5,12 @@ Parity, on the same inputs made from a numpy seed: rendezvous owners and
 ranks for 10,000 agent ids at ring sizes 1 to 5; ``PeerSet``'s health block
 and cohort counts under one probe sequence; the five merges on the same
 recorded panes; the shipper's frames for one journal, byte for byte; the
-replica's rows for the same frames; and the writer's bounded queue under
+replica's rows for the same frames; the writer's bounded queue under
 the replica (ROADMAP C15: the reference drops the tail it acks, the port
-waits for a drain).
+waits for a drain); and a replication stream that reaches its successor
+before the successor attaches its peers (ROADMAP C10: the reference's
+successor acks the journal into its own cohort, the port's shipper waits
+until the successor is federated).
 
 Interop: a port manager peered with a reference manager, both ways round,
 over v1 and over v2. Each replica equals its source journal in every
@@ -324,6 +327,58 @@ def test_c15_the_replica_under_a_full_writer_queue(pkg, tmp_path):
         assert durable < acked and durable + dropped == acked
     else:
         assert (durable, dropped) == (100, 0)
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_c10_a_peer_stream_that_connects_before_attach_peers(pkg, tmp_path):
+    """ROADMAP C10: manager a attaches its peers while b has not yet, and
+    a's replication stream connects to b then. The reference's b takes the
+    stream as an agent's: a's journal is acked into b's own cohort and b's
+    replica of a stays empty after b attaches. The port's shipper sends
+    nothing until b's ``/v1/fleet/peers`` says it is federated, and b's
+    replica then equals a's journal in every column."""
+    p = PKGS[pkg]
+    cps = {}
+    try:
+        for pid in ("m-a", "m-b"):
+            cp = p.control_plane.ControlPlane(instance_id=pid, data_dir=str(tmp_path / pid),
+                                              shards=1)
+            cp.start()
+            cps[pid] = cp
+        a, b = cps["m-a"], cps["m-b"]
+        for agent, recs in _cohort_records().items():
+            a.rollup.ingest(agent, recs, now=NOW)
+        a.writer.flush(timeout=WAIT)
+        specs = [f"{pid}=http://127.0.0.1:{cp.port}" for pid, cp in cps.items()]
+        kwargs = {"replication_interval": 0.05, "probe_interval": 600, "ship_batch": 40}
+        a.attach_peers("m-a", specs, **kwargs)
+        head = a.federation.shipper.journal_head()
+        assert head > 0
+        _wait(lambda: "peer:m-a" in b.agents, "a's stream at b before b attaches")
+        if pkg == "ref":
+            _wait(lambda: a.federation.shipper.stats()["acked_rowid"] >= head,
+                  "b's acks as an agent's")
+        else:
+            time.sleep(20 * kwargs["replication_interval"])
+            assert a.federation.shipper.stats()["shipped_rows"] == 0
+        b.writer.flush(timeout=WAIT)
+        leaked = b.rollup.records_total()
+        b.attach_peers("m-b", specs, **kwargs)
+        if pkg == "ref":
+            time.sleep(20 * kwargs["replication_interval"])
+            assert leaked > 0 and b.federation.replica.watermark("m-a") == 0
+            assert "peer:m-a" in b.rollup.agent_ids()
+        else:
+            _wait(lambda: b.federation.replica.watermark("m-a") >= head, "b's replica of a")
+            b.writer.flush(timeout=WAIT)
+            rows = a.db.query(f"SELECT {JOURNAL_COLUMNS} FROM {TABLE} ORDER BY rowid")
+            assert [tuple(r) for r in b.federation.replica.rows("m-a")] == \
+                [tuple(r) for r in rows]
+            assert leaked == 0 and b.rollup.records_total() == 0
+            assert "peer:m-a" not in b.rollup.agent_ids()
+    finally:
+        for cp in cps.values():
+            cp.stop()
 
 
 # -- mixed peer sets -----------------------------------------------------------------

@@ -629,3 +629,40 @@ def test_the_manager_loads_no_torch_and_grpc_only_when_v2_starts():
     lines = proc.stdout.strip().splitlines()
     assert "--shards" in proc.stdout and "--peers" in proc.stdout
     assert json.loads(lines[-1]) == [0, False, False, False, True, ["torch"]]
+
+
+TOOLS_FILES = sorted(str(p.relative_to(REPO))
+                     for p in (REPO / "gpud_tpu_torch" / "tools").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", TOOLS_FILES)
+def test_the_tools_import_no_jax_no_jax_package_and_no_torch(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN + ("torch", "triton")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_running_every_lint_loads_neither_torch_nor_jax():
+    # the nine lints import the modules they check: none of them pulls in
+    # torch, JAX or the JAX package
+    code = textwrap.dedent("""
+        import json, sys
+        before = set(sys.modules)
+        from gpud_tpu_torch.tools.lint_all import run_all
+        problems = run_all()
+        new = sorted(m for m in set(sys.modules) - before
+                     if m.split(".")[0] in ("torch", "triton", "jax", "jaxlib", "gpud_tpu"))
+        print(json.dumps([problems, new]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[-1]) == [[], []]
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text(), filename="chip_smoke.py")
+    mods = list(_imported_modules(tree))
+    assert "gpud_tpu_torch.fleet_scan" in mods or "gpud_tpu_torch" in mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
