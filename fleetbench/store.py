@@ -1,0 +1,65 @@
+"""The link store's on-disk schema and a bulk writer for generated hosts.
+
+The DDL is a frozen copy of the NVLink store's (the daemon's
+``tpud_ici_snapshots_v0_1`` with its ``(link, ts)`` and ``(ts)`` indexes, and
+``tpud_ici_tombstones_v0_1``), so the files written here are what a host's
+daemon leaves on disk. Rows go in sweep by sweep, every link of one snapshot
+under one timestamp, into a table whose indexes already exist, as the
+daemon inserts them: the indexes grow one row at a time, with the page
+layout that gives.
+"""
+
+from __future__ import annotations
+
+import sqlite3
+from typing import Dict
+
+import numpy as np
+
+TABLE = "tpud_ici_snapshots_v0_1"
+TOMBSTONE_TABLE = "tpud_ici_tombstones_v0_1"
+
+DDL = (
+    f"""CREATE TABLE IF NOT EXISTS {TABLE} (
+        ts REAL NOT NULL,
+        link TEXT NOT NULL,
+        state INTEGER NOT NULL,
+        tx_bytes INTEGER NOT NULL DEFAULT 0,
+        rx_bytes INTEGER NOT NULL DEFAULT 0,
+        tx_errors INTEGER NOT NULL DEFAULT 0,
+        rx_errors INTEGER NOT NULL DEFAULT 0,
+        crc_errors INTEGER NOT NULL DEFAULT 0,
+        replays INTEGER NOT NULL DEFAULT 0
+    )""",
+    f"CREATE TABLE IF NOT EXISTS {TOMBSTONE_TABLE} "
+    "(link TEXT PRIMARY KEY, ts REAL NOT NULL)",
+    f"CREATE INDEX IF NOT EXISTS idx_{TABLE}_link_ts ON {TABLE} (link, ts)",
+    f"CREATE INDEX IF NOT EXISTS idx_{TABLE}_ts ON {TABLE} (ts)",
+)
+
+
+def write_host_db(path: str, links: list, ts: np.ndarray, states: np.ndarray,
+                  crc: np.ndarray, tombstones: Dict[str, float]) -> int:
+    """Write one host's DB: ``states`` and ``crc`` are [links, sweeps] and
+    ``ts`` the sweeps' times. Returns the number of snapshot rows."""
+    n_links, n_sweeps = states.shape
+    conn = sqlite3.connect(path)
+    try:
+        conn.execute("PRAGMA journal_mode=OFF")
+        conn.execute("PRAGMA synchronous=OFF")
+        for ddl in DDL:
+            conn.execute(ddl)
+        # sweep-major: row r is link r % n_links of sweep r // n_links
+        conn.executemany(
+            f"INSERT INTO {TABLE} (ts, link, state, crc_errors) VALUES (?,?,?,?)",
+            zip(np.repeat(ts, n_links).tolist(), links * n_sweeps,
+                states.T.ravel().tolist(), crc.T.ravel().tolist()),
+        )
+        conn.executemany(
+            f"INSERT INTO {TOMBSTONE_TABLE} (link, ts) VALUES (?, ?)",
+            sorted(tombstones.items()),
+        )
+        conn.commit()
+    finally:
+        conn.close()
+    return n_links * n_sweeps
