@@ -5,8 +5,10 @@ checks this host's GPUs once (through NVML, or the mock backend under
 ``TPUD_GPU_MOCK_ALL_SUCCESS=1``) and prints the check table of ``tpud scan``.
 
 ``python -m gpud_tpu_torch fleet-scan DB... [--window S] [--flap-threshold N]
-[--crc-threshold N] [--json] [--device cuda|cpu]`` prints what
-``tpud fleet-scan`` prints. The scan runs on the card unless ``--device cpu``.
+[--crc-threshold N] [--json] [--device cuda|cpu] [--spans]`` prints what
+``tpud fleet-scan`` prints. The scan runs on the card unless ``--device cpu``;
+``--spans`` adds the sweep's spans from the trace ring as a JSON line on
+stderr.
 
 ``compact``, ``metadata``, ``history`` and ``remediation`` (each with
 ``--data-dir``) read the daemon's state DB offline, daemon up or not, and
@@ -277,8 +279,10 @@ def cmd_scan(args) -> int:
 
 def cmd_fleet_scan(args) -> int:
     """Fleet-wide link-history sweep (gpud_tpu_torch/fleet_scan.py)."""
-    from gpud_tpu_torch.fleet_scan import fleet_scan
+    from gpud_tpu_torch.fleet_scan import COMPONENT, fleet_scan
+    from gpud_tpu_torch.tracing import DEFAULT_TRACER
 
+    t0 = time.time()
     res = fleet_scan(
         args.dbs,
         window_seconds=args.window,
@@ -286,6 +290,10 @@ def cmd_fleet_scan(args) -> int:
         crc_threshold=args.crc_threshold,
         device=args.device,
     )
+    if args.spans:
+        spans = DEFAULT_TRACER.snapshot(component=COMPONENT, since=t0)
+        # ids are handed out as spans open: oldest first
+        print(json.dumps(sorted(spans, key=lambda s: s["span_id"])), file=sys.stderr)
     if args.as_json:
         print(json.dumps(res, indent=2, sort_keys=True))
     else:
@@ -1045,6 +1053,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="print the full result as JSON")
     pfs.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="where the scan runs (default: the card)")
+    pfs.add_argument("--spans", action="store_true",
+                     help="print the sweep's spans, oldest first, as one JSON line on stderr")
     pfs.set_defaults(fn=cmd_fleet_scan)
 
     pr = sub.add_parser("run", help="run the daemon")

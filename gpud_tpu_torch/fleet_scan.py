@@ -17,6 +17,25 @@ Histories are packed: each link's snapshots sit left-aligned in ts order
 with suffix padding (a prefix validity mask), so every consecutive snapshot
 pair is compared exactly like ``ICIStore.scan`` walks them. Per-link sample
 counts are bounded by ``MAX_STEPS`` (14 days of minutes).
+
+Each sweep records its spans in the trace ring (``tracing.DEFAULT_TRACER``,
+component ``"fleet_scan"``), one per layer and none per DB or row:
+
+    fleet_scan.sweep                 dbs, links, devices, cpu_s
+      fleet_scan.load                dbs, rows_fetched, rows_tombstoned,
+                                     rows_kept, open_s, fetch_s,
+                                     slowest_db, slowest_db_s
+        fleet_scan.pack              links, t_max, truncated
+      fleet_scan.split               devices, h2d_bytes
+        fleet_scan.h2d               bytes        } once per device
+        fleet_scan.scan              L, T         }
+        fleet_scan.classify                       }
+        fleet_scan.gather
+      fleet_scan.assemble
+
+While a torch profiler records, each span is also a profiler annotation of
+the same name, so the spans sit on the device trace's clock beside the
+copies and kernels they launched.
 """
 
 from __future__ import annotations
@@ -25,12 +44,14 @@ import logging
 import os
 import sqlite3
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import quote
 
 import numpy as np
 import torch
 
+from gpud_tpu_torch import tracing
 from gpud_tpu_torch.device import DeviceLike, resolve_device
 from gpud_tpu_torch.ops.packed_scan import packed_from_numpy, scan_links_packed
 from gpud_tpu_torch.ops.window_scan import classify_links
@@ -47,6 +68,27 @@ MAX_STEPS = 20160
 
 CLASS_NAMES = ("healthy", "degraded", "unhealthy")
 
+COMPONENT = "fleet_scan"  # the spans' component in the trace ring
+# rows per cursor fetch: SQLite's stepping is timed per batch, apart from
+# the Python loop over the rows, at no cost per row. A batch's row tuples
+# are alive at once and leave their memory to the interpreter's pools: 4096
+# rows added 1.2 MB to a 32-host sweep's resident peak on an H100 host, 256
+# rows 0.2 MB
+FETCH_ROWS = 256
+
+
+@contextmanager
+def _span(name: str, attrs: Optional[Dict] = None):
+    """A span of this module in the trace ring and, only while a torch
+    profiler records, a profiler annotation of the same name: entering
+    ``record_function`` costs tens of microseconds even with no profiler."""
+    with tracing.span(name, COMPONENT, attrs) as sp:
+        if torch._C._autograd._profiler_enabled():
+            with torch.profiler.record_function(name):
+                yield sp
+        else:
+            yield sp
+
 
 def load_fleet_history(
     db_paths: List[str],
@@ -61,6 +103,11 @@ def load_fleet_history(
     bool) with each link's samples left-aligned in ts order (``valid`` is a
     prefix mask). A link exceeding ``max_samples`` keeps its LATEST samples
     and is reported in ``truncated``, never silently.
+
+    Recorded as the ``fleet_scan.load`` span: rows fetched from SQLite,
+    dropped by set-healthy tombstones and kept; seconds in the opens (connect
+    and tombstone read) and in SQLite's fetch calls, summed over the DBs; and
+    the DB that took longest from open to close.
     """
     t_now = now if now is not None else time.time()
     start = t_now - window_seconds
@@ -68,46 +115,85 @@ def load_fleet_history(
     seqs: Dict[str, List[Tuple[int, int]]] = {}  # name → [(state, crc), ...]
     names: List[str] = []
     used_hosts: Dict[str, int] = {}
-    for path in db_paths:
-        host = os.path.splitext(os.path.basename(path))[0]
-        # two DBs named host1.db in different dirs must not merge
-        n_seen = used_hosts.get(host, 0)
-        used_hosts[host] = n_seen + 1
-        if n_seen:
-            host = f"{host}-{n_seen + 1}"
-        # read-only URI; the path is escaped because '?', '#' or '%' would
-        # otherwise be parsed as URI syntax
-        uri = f"file:{quote(os.path.abspath(path))}?mode=ro"
-        conn = sqlite3.connect(uri, uri=True)
-        try:
-            tombstones = {}
+    fetched = tombstoned = 0
+    open_s = fetch_s = slowest_s = 0.0
+    slowest = ""
+    with _span("fleet_scan.load") as sp:
+        for path in db_paths:
+            host = os.path.splitext(os.path.basename(path))[0]
+            # two DBs named host1.db in different dirs must not merge
+            n_seen = used_hosts.get(host, 0)
+            used_hosts[host] = n_seen + 1
+            if n_seen:
+                host = f"{host}-{n_seen + 1}"
+            # read-only URI; the path is escaped because '?', '#' or '%' would
+            # otherwise be parsed as URI syntax
+            uri = f"file:{quote(os.path.abspath(path))}?mode=ro"
+            t_open = time.perf_counter()
+            conn = sqlite3.connect(uri, uri=True)
             try:
-                tombstones = dict(
-                    conn.execute(f"SELECT link, ts FROM {TOMBSTONE_TABLE}")
+                tombstones = {}
+                try:
+                    tombstones = dict(
+                        conn.execute(f"SELECT link, ts FROM {TOMBSTONE_TABLE}")
+                    )
+                except sqlite3.OperationalError:
+                    pass  # older DB without the table
+                global_ts = tombstones.get("*", 0.0)
+                t_fetch = time.perf_counter()
+                open_s += t_fetch - t_open
+                cur = conn.execute(
+                    f"SELECT link, ts, state, crc_errors FROM {TABLE} "
+                    "WHERE ts>=? ORDER BY link, ts ASC",
+                    (start,),
                 )
-            except sqlite3.OperationalError:
-                pass  # older DB without the table
-            global_ts = tombstones.get("*", 0.0)
-            cur = conn.execute(
-                f"SELECT link, ts, state, crc_errors FROM {TABLE} "
-                "WHERE ts>=? ORDER BY link, ts ASC",
-                (start,),
-            )
-            for link, ts, state, crc in cur:
-                # honour set-healthy exactly like ICIStore.scan
-                if ts < max(global_ts, tombstones.get(link, 0.0)):
-                    continue
-                name = f"{host}/{link}"
-                if name not in seqs:
-                    seqs[name] = []
-                    names.append(name)
-                seqs[name].append((int(state), int(crc)))
-        finally:
-            conn.close()
+                while True:
+                    batch = cur.fetchmany(FETCH_ROWS)
+                    fetch_s += time.perf_counter() - t_fetch
+                    if not batch:
+                        break
+                    fetched += len(batch)
+                    for link, ts, state, crc in batch:
+                        # honour set-healthy exactly like ICIStore.scan
+                        if ts < max(global_ts, tombstones.get(link, 0.0)):
+                            tombstoned += 1
+                            continue
+                        name = f"{host}/{link}"
+                        if name not in seqs:
+                            seqs[name] = []
+                            names.append(name)
+                        seqs[name].append((int(state), int(crc)))
+                    t_fetch = time.perf_counter()
+            finally:
+                conn.close()
+            db_s = time.perf_counter() - t_open
+            if db_s > slowest_s:
+                slowest, slowest_s = host, db_s
 
+        with _span("fleet_scan.pack") as pk:
+            states, counters, valid, truncated = _pack(names, seqs, max_samples)
+            pk.set_attr("links", len(names))
+            pk.set_attr("t_max", states.shape[1] if names else 0)
+            pk.set_attr("truncated", len(truncated))
+        # the per-link lists' teardown (a tenth of a microsecond a row) is
+        # the loader's: free them inside its span, not on return
+        del seqs
+        for key, value in (("dbs", len(db_paths)), ("rows_fetched", fetched),
+                           ("rows_tombstoned", tombstoned),
+                           ("rows_kept", fetched - tombstoned), ("open_s", open_s),
+                           ("fetch_s", fetch_s), ("slowest_db", slowest),
+                           ("slowest_db_s", slowest_s)):
+            sp.set_attr(key, value)
+    return names, states, counters, valid, truncated
+
+
+def _pack(names: List[str], seqs: Dict[str, List[Tuple[int, int]]], max_samples: int):
+    """The loader's per-link sequences as left-aligned [L, T] arrays, each
+    link cut to its latest ``max_samples``; returns (states, counters,
+    valid, truncated)."""
     if not names:
         z = np.zeros((0, 1), dtype=np.int8)
-        return [], z, z.astype(np.int32), z.astype(bool), []
+        return z, z.astype(np.int32), z.astype(bool), []
 
     truncated: List[str] = []
     for name, seq in seqs.items():
@@ -136,7 +222,7 @@ def load_fleet_history(
             [c - base for _s, c in seq], -(2**31), 2**31 - 1
         )
         valid[i, :n] = True
-    return names, states, counters, valid, truncated
+    return states, counters, valid, truncated
 
 
 def _scan_devices(device: DeviceLike) -> List[torch.device]:
@@ -162,22 +248,36 @@ def _classify_split(
     (class 0, dropped after); block i of L/n rows is scanned and classified
     on ``devices[i]`` (one kernel launch per card), and the classes are
     gathered in link order. All blocks are launched before any is read.
+    Recorded as the ``fleet_scan.split`` span, with the bytes copied to the
+    devices.
     """
     n = len(devices)
     L = states.shape[0]
-    pad = (-L) % n
-    if pad:
-        states, counters, valid = (np.pad(x, ((0, pad), (0, 0)))
-                                   for x in (states, counters, valid))
-    rows = (L + pad) // n
-    blocks = []
-    for i, dev in enumerate(devices):
-        part = slice(i * rows, (i + 1) * rows)
-        scan = scan_links_packed(*packed_from_numpy(
-            states[part], counters[part], valid[part], dev))
-        blocks.append(classify_links(
-            scan, flap_threshold=flap_threshold, crc_threshold=crc_threshold))
-    return torch.cat([b.cpu() for b in blocks])[:L].numpy()
+    with _span("fleet_scan.split", {"devices": n}) as sp:
+        pad = (-L) % n
+        if pad:
+            states, counters, valid = (np.pad(x, ((0, pad), (0, 0)))
+                                       for x in (states, counters, valid))
+        rows = (L + pad) // n
+        blocks = []
+        h2d_bytes = 0
+        for i, dev in enumerate(devices):
+            part = slice(i * rows, (i + 1) * rows)
+            arrays = (states[part], counters[part], valid[part])
+            nbytes = sum(a.nbytes for a in arrays)
+            h2d_bytes += nbytes
+            with _span("fleet_scan.h2d", {"bytes": nbytes}):
+                packed = packed_from_numpy(*arrays, dev)
+            with _span("fleet_scan.scan", {"L": rows, "T": states.shape[1]}):
+                scan = scan_links_packed(*packed)
+            with _span("fleet_scan.classify"):
+                blocks.append(classify_links(
+                    scan, flap_threshold=flap_threshold, crc_threshold=crc_threshold))
+        # the host waits here for every device's work
+        with _span("fleet_scan.gather"):
+            classes = torch.cat([b.cpu() for b in blocks])[:L].numpy()
+        sp.set_attr("h2d_bytes", h2d_bytes)
+    return classes
 
 
 def fleet_scan(
@@ -197,27 +297,33 @@ def fleet_scan(
              "summary": {...}, "devices": n, "window_seconds": S,
              "truncated_links": [...]}; ``devices`` is the number of
     devices the scan ran on, 0 when there was nothing to scan.
-    """
-    devices = _scan_devices(device)
-    names, states, counters, valid, truncated = load_fleet_history(
-        db_paths, window_seconds, now=now
-    )
-    summary = {label: 0 for label in CLASS_NAMES}
-    out = {
-        "window_seconds": window_seconds,
-        "links": {},
-        "summary": summary,
-        "devices": 0,
-        "truncated_links": truncated,
-    }
-    if not names:
-        return out
 
-    classes = _classify_split(devices, states, counters, valid,
-                              flap_threshold, crc_threshold).tolist()
-    out["devices"] = len(devices)
-    for name, c in zip(names, classes):
-        label = CLASS_NAMES[c]
-        out["links"][name] = label
-        summary[label] += 1
+    Recorded as the ``fleet_scan.sweep`` span, with the thread's CPU seconds.
+    """
+    cpu0 = time.thread_time()
+    with _span("fleet_scan.sweep", {"dbs": len(db_paths)}) as sp:
+        devices = _scan_devices(device)
+        names, states, counters, valid, truncated = load_fleet_history(
+            db_paths, window_seconds, now=now
+        )
+        summary = {label: 0 for label in CLASS_NAMES}
+        out = {
+            "window_seconds": window_seconds,
+            "links": {},
+            "summary": summary,
+            "devices": 0,
+            "truncated_links": truncated,
+        }
+        if names:
+            classes = _classify_split(devices, states, counters, valid,
+                                      flap_threshold, crc_threshold)
+            with _span("fleet_scan.assemble"):
+                out["devices"] = len(devices)
+                for name, c in zip(names, classes.tolist()):
+                    label = CLASS_NAMES[c]
+                    out["links"][name] = label
+                    summary[label] += 1
+        sp.set_attr("links", len(names))
+        sp.set_attr("devices", out["devices"])
+        sp.set_attr("cpu_s", time.thread_time() - cpu0)
     return out

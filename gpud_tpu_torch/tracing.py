@@ -105,10 +105,6 @@ class Tracer:
             st = self._local.stack = []
         return st
 
-    def current_span_id(self) -> int:
-        st = self._stack()
-        return st[-1].span_id if st else 0
-
     @contextmanager
     def span(self, name: str, component: str = "", attrs: Optional[Dict] = None):
         """Nested span over a sync code block. Exceptions mark the span

@@ -1,0 +1,241 @@
+"""The spans and counters that a sweep of the port's fleet scan
+(gpud_tpu_torch/fleet_scan.py) records in the trace ring: the tree of
+``fleet_scan.*`` spans, the loader's row counts against counts taken
+straight from the DBs, the bytes copied, the batched cursor at the edges of
+a batch against the reference's classes, the same spans as profiler
+annotations on the trace's clock, and the CLI's ``--spans``."""
+
+import json
+import sqlite3
+
+import numpy as np
+import pytest
+import torch
+
+from gpud_tpu import fleet_scan as jax_fs
+
+from gpud_tpu_torch import cli as torch_cli
+from gpud_tpu_torch import fleet_scan as torch_fs
+from gpud_tpu_torch.components.gpu.nvlink_store import NVLinkStore
+from gpud_tpu_torch.sqlite import DB
+from gpud_tpu_torch.tracing import DEFAULT_TRACER
+
+NOW = 1_700_000_000.0
+WINDOW = 3600.0
+
+SWEEP_TREE = [  # (name, parent's name), in start order, on one device
+    ("fleet_scan.sweep", None),
+    ("fleet_scan.load", "fleet_scan.sweep"),
+    ("fleet_scan.pack", "fleet_scan.load"),
+    ("fleet_scan.split", "fleet_scan.sweep"),
+    ("fleet_scan.h2d", "fleet_scan.split"),
+    ("fleet_scan.scan", "fleet_scan.split"),
+    ("fleet_scan.classify", "fleet_scan.split"),
+    ("fleet_scan.gather", "fleet_scan.split"),
+    ("fleet_scan.assemble", "fleet_scan.sweep"),
+]
+
+
+def _host_db(path, links, samples, t0, step=60.0, seed=0):
+    """``links`` links of ``samples`` snapshots each (or ``samples[k]`` for
+    link k), ``step`` seconds apart from ``t0``; states up or down and
+    rising CRC counters from ``seed``."""
+    rng = np.random.default_rng(seed)
+    db = DB(str(path))
+    NVLinkStore(db)
+    rows = []
+    for k in range(links):
+        n = samples[k] if isinstance(samples, list) else samples
+        down = rng.random(n) < 0.1
+        crc = np.cumsum(rng.integers(0, 40, n))
+        rows += [(t0 + i * step, f"gpu{k // 18}/nvlink{k % 18}", int(not down[i]), int(crc[i]))
+                 for i in range(n)]
+    db.executemany(f"INSERT INTO {torch_fs.TABLE} (ts, link, state, crc_errors) "
+                   "VALUES (?, ?, ?, ?)", rows)
+    return db
+
+
+def _tombstoned_fleet(tmp_path):
+    """Three hosts, 90 minutes each (half before the window): a ``*``
+    tombstone mid-window on one, a per-link one on another, none on the
+    third."""
+    paths = []
+    for i, tomb in enumerate((("*", NOW - 1200), ("gpu0/nvlink3", NOW - 600), None)):
+        path = tmp_path / f"host{i}.db"
+        db = _host_db(path, links=20, samples=90, t0=NOW - 90 * 60 + 1, seed=i)
+        if tomb:
+            NVLinkStore(db).set_tombstone(*tomb)
+        db.close()
+        paths.append(str(path))
+    return paths
+
+
+def _counts_from_dbs(paths, start):
+    """Rows in the window, and those a tombstone drops, by SQL alone."""
+    fetched = dropped = 0
+    for path in paths:
+        conn = sqlite3.connect(path)
+        try:
+            q = f"FROM {torch_fs.TABLE} s WHERE s.ts >= ?"
+            fetched += conn.execute(f"SELECT COUNT(*) {q}", (start,)).fetchone()[0]
+            dropped += conn.execute(
+                f"SELECT COUNT(*) {q} AND s.ts < MAX("
+                f"COALESCE((SELECT ts FROM {torch_fs.TOMBSTONE_TABLE} WHERE link = '*'), 0),"
+                f"COALESCE((SELECT ts FROM {torch_fs.TOMBSTONE_TABLE} t WHERE t.link = s.link), 0))",
+                (start,)).fetchone()[0]
+        finally:
+            conn.close()
+    return fetched, dropped
+
+
+def _sweep(paths, monkeypatch=None, n_devices=1, **kw):
+    """One sweep on the CPU; its spans, oldest first."""
+    if n_devices > 1:
+        monkeypatch.setattr(torch_fs, "_scan_devices",
+                            lambda _d: [torch.device("cpu")] * n_devices)
+    DEFAULT_TRACER.clear()
+    res = torch_fs.fleet_scan(paths, window_seconds=WINDOW, now=NOW,
+                              device=None if n_devices > 1 else "cpu", **kw)
+    return res, _oldest_first()
+
+
+def _oldest_first():
+    # the ring holds spans as they close; ids are handed out as they open
+    return sorted(DEFAULT_TRACER.snapshot(component=torch_fs.COMPONENT),
+                  key=lambda s: s["span_id"])
+
+
+def _attrs(spans, name):
+    return next(s for s in spans if s["name"] == name).get("attrs", {})
+
+
+def test_one_sweep_records_the_tree(tmp_path):
+    paths = _tombstoned_fleet(tmp_path)
+    res, spans = _sweep(paths)
+    by_id = {s["span_id"]: s["name"] for s in spans}
+    assert [(s["name"], by_id.get(s.get("parent_id"))) for s in spans] == SWEEP_TREE
+    root = spans[0]
+    assert "parent_id" not in root
+    assert all(s["status"] == "ok" and s["component"] == "fleet_scan" for s in spans)
+    assert _attrs(spans, "fleet_scan.sweep")["dbs"] == "3"
+    assert _attrs(spans, "fleet_scan.sweep")["links"] == str(len(res["links"])) == "60"
+    assert _attrs(spans, "fleet_scan.sweep")["devices"] == "1"
+    assert float(_attrs(spans, "fleet_scan.sweep")["cpu_s"]) > 0
+    # every child lies inside its parent on the wall clock
+    by_span = {s["span_id"]: s for s in spans}
+    for s in spans[1:]:
+        p = by_span[s["parent_id"]]
+        assert p["start_unix"] <= s["start_unix"]
+        assert s["start_unix"] + s["duration_seconds"] <= (
+            p["start_unix"] + p["duration_seconds"] + 1e-3)
+
+
+def test_loader_counters_equal_counts_from_the_dbs(tmp_path):
+    paths = _tombstoned_fleet(tmp_path)
+    _res, spans = _sweep(paths)
+    fetched, dropped = _counts_from_dbs(paths, NOW - WINDOW)
+    load = _attrs(spans, "fleet_scan.load")
+    assert dropped > 0 and fetched == 3 * 20 * 60
+    assert int(load["rows_fetched"]) == fetched
+    assert int(load["rows_tombstoned"]) == dropped
+    assert int(load["rows_kept"]) == fetched - dropped
+    assert load["dbs"] == "3"
+    assert load["slowest_db"] in {"host0", "host1", "host2"}
+    load_s = next(s for s in spans if s["name"] == "fleet_scan.load")["duration_seconds"]
+    parts = [float(load[k]) for k in ("open_s", "fetch_s", "slowest_db_s")]
+    assert all(0 < x < load_s for x in parts)
+    assert float(load["open_s"]) + float(load["fetch_s"]) < load_s
+    pack = _attrs(spans, "fleet_scan.pack")
+    assert (pack["links"], pack["t_max"], pack["truncated"]) == ("60", "60", "0")
+
+
+@pytest.mark.parametrize("n_devices", [1, 3])
+def test_h2d_bytes_are_the_padded_layout(tmp_path, monkeypatch, n_devices):
+    paths = _tombstoned_fleet(tmp_path)[:2]  # 40 links: 42 padded over 3
+    _res, spans = _sweep(paths, monkeypatch, n_devices)
+    L = 40 + (-40) % n_devices
+    split = _attrs(spans, "fleet_scan.split")
+    assert split == {"devices": str(n_devices), "h2d_bytes": str(L * 60 * 6)}
+    h2d = [s for s in spans if s["name"] == "fleet_scan.h2d"]
+    assert [int(s["attrs"]["bytes"]) for s in h2d] == [L // n_devices * 60 * 6] * n_devices
+    scans = [s["attrs"] for s in spans if s["name"] == "fleet_scan.scan"]
+    assert scans == [{"L": str(L // n_devices), "T": "60"}] * n_devices
+    assert sum(s["name"] == "fleet_scan.classify" for s in spans) == n_devices
+    assert sum(s["name"] == "fleet_scan.gather" for s in spans) == 1
+
+
+@pytest.mark.parametrize("rows", [2 * torch_fs.FETCH_ROWS, torch_fs.FETCH_ROWS + 1])
+def test_batch_edges_give_the_reference_classes(tmp_path, rows):
+    # 16 links, all in the window: a batch ends on a link's edge (2 batches
+    # of 8 whole links) or inside one (the last row alone in a batch)
+    links = 16
+    samples = [rows // links + (k < rows % links) for k in range(links)]
+    assert sum(samples) == rows and min(samples) > 1
+    _host_db(tmp_path / "h.db", links, samples, t0=NOW - max(samples) * 10, step=10.0).close()
+    paths = [str(tmp_path / "h.db")]
+    ref = jax_fs.fleet_scan(paths, window_seconds=WINDOW, now=NOW)
+    got, spans = _sweep(paths)
+    for key in ("links", "summary", "truncated_links"):
+        assert got[key] == ref[key], key
+    assert set(got["summary"].values()) != {0} and len(got["links"]) == links
+    assert _attrs(spans, "fleet_scan.load")["rows_fetched"] == str(rows)
+
+
+def test_spans_are_profiler_annotations_on_the_trace_clock(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    paths = _tombstoned_fleet(tmp_path)
+    DEFAULT_TRACER.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch_fs.fleet_scan(paths, window_seconds=WINDOW, now=NOW, device="cpu")
+    spans = _oldest_first()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    doc = json.loads(trace.read_text())
+    base_us = doc["baseTimeNanoseconds"] / 1e3
+    notes = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in doc["traceEvents"]
+             if e.get("cat") == "user_annotation" and e["name"].startswith("fleet_scan.")}
+    assert set(notes) == {name for name, _p in SWEEP_TREE}
+    by_id = {s["span_id"]: s["name"] for s in spans}
+    for s in spans:
+        a0, a1 = notes[s["name"]]
+        assert abs((base_us + a0) / 1e6 - s["start_unix"]) < 0.1, s["name"]
+        parent = by_id.get(s.get("parent_id"))
+        if parent:  # nested as the spans are
+            p0, p1 = notes[parent]
+            assert p0 <= a0 and a1 <= p1, s["name"]
+
+
+def test_no_annotation_without_a_profiler(tmp_path, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    real, entered = torch.profiler.record_function, []
+
+    def counting(name, *a, **kw):
+        entered.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    paths = _tombstoned_fleet(tmp_path)
+    torch_fs.fleet_scan(paths, window_seconds=WINDOW, now=NOW, device="cpu")
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch_fs.fleet_scan(paths, window_seconds=WINDOW, now=NOW, device="cpu")
+    assert entered == [name for name, _p in SWEEP_TREE]
+
+
+def test_cli_spans_prints_the_sweep_on_stderr(tmp_path, capsys):
+    paths = _tombstoned_fleet(tmp_path)
+    argv = ["fleet-scan", "--device", "cpu", "--window", "1e9", *paths]
+    rc_plain = torch_cli.main(argv)
+    plain = capsys.readouterr()
+    rc = torch_cli.main([*argv, "--spans"])
+    got = capsys.readouterr()
+    assert (rc, got.out) == (rc_plain, plain.out)
+    assert plain.err == ""
+    lines = got.err.strip().splitlines()
+    assert len(lines) == 1
+    spans = json.loads(lines[0])
+    assert [s["name"] for s in spans] == [name for name, _p in SWEEP_TREE]
+    assert [s["start_unix"] for s in spans] == sorted(s["start_unix"] for s in spans)
+    assert spans[1]["attrs"]["rows_fetched"] == str(3 * 20 * 90)
