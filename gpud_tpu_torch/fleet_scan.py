@@ -45,7 +45,7 @@ import os
 import sqlite3
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 from urllib.parse import quote
 
 import numpy as np
@@ -69,12 +69,18 @@ MAX_STEPS = 20160
 CLASS_NAMES = ("healthy", "degraded", "unhealthy")
 
 COMPONENT = "fleet_scan"  # the spans' component in the trace ring
-# rows per cursor fetch: SQLite's stepping is timed per batch, apart from
-# the Python loop over the rows, at no cost per row. A batch's row tuples
-# are alive at once and leave their memory to the interpreter's pools: 4096
-# rows added 1.2 MB to a 32-host sweep's resident peak on an H100 host, 256
-# rows 0.2 MB
-FETCH_ROWS = 256
+
+# one query a DB: it walks only the window's entries of the (ts) index, in a
+# total order (ties by rowid, as the (link, ts) index orders them), so each
+# link's rows come in ts order whatever depth the DB stores
+QUERY = (f"SELECT link, ts, state, crc_errors FROM {TABLE} "
+         "WHERE ts>=? ORDER BY ts, rowid")
+# rows per cursor fetch, each batch turned into columns at once: a batch's row
+# tuples are the only per-row Python objects alive. A batch stays under the
+# collector's threshold of 700 new objects (gc.get_threshold), so no
+# collection walks the rows: with 4,096-row batches the collector took 10-12 %
+# of a sweep on an H100 host, with 512 nothing; 256 rows cost more calls
+FETCH_ROWS = 512
 
 
 @contextmanager
@@ -90,6 +96,68 @@ def _span(name: str, attrs: Optional[Dict] = None):
             yield sp
 
 
+class _LinkIds(dict):
+    """A host's link names → ids, numbered in the order first fetched."""
+
+    def __missing__(self, link):
+        self[link] = n = len(self)
+        return n
+
+
+def _fetch_columns(conn: sqlite3.Connection, start: float, ids: _LinkIds):
+    """The DB's rows at or after ``start`` in ts order as columns (link id,
+    ts, state, CRC), and the seconds spent in SQLite's calls."""
+    # a list a column: a tuple a batch, kept alive, would count against the
+    # collector's threshold
+    lids, tss, states, crcs = cols = ([np.empty(0, np.int32)], [np.empty(0)],
+                                      [np.empty(0, np.int8)], [np.empty(0, np.int64)])
+    t_fetch = time.perf_counter()
+    cur = conn.execute(QUERY, (start,))
+    fetch_s = 0.0
+    while True:
+        batch = cur.fetchmany(FETCH_ROWS)
+        fetch_s += time.perf_counter() - t_fetch
+        if not batch:
+            break
+        n = len(batch)
+        link, ts, state, crc = zip(*batch)
+        lids.append(np.fromiter(map(ids.__getitem__, link), np.int32, n))
+        tss.append(np.fromiter(ts, np.float64, n))
+        states.append(np.fromiter(state, np.int8, n))
+        crcs.append(np.fromiter(crc, np.int64, n))
+        t_fetch = time.perf_counter()
+    return [np.concatenate(col) for col in cols], fetch_s
+
+
+def _host_block(lid: np.ndarray, state: np.ndarray, crc: np.ndarray, n_ids: int,
+                max_samples: int):
+    """One host's kept rows (link id, state, CRC; each link's in order) as a
+    left-aligned block: each link with rows, in id order, cut to its latest
+    ``max_samples`` and its counter rebased on its first kept sample. Returns
+    (ids, states, counters, valid, cut) with [l_h, t_h] int8, int32 and bool
+    arrays and the ids of the links cut."""
+    counts = np.bincount(lid, minlength=n_ids)
+    ids = np.flatnonzero(counts)
+    counts = counts[ids]
+    n = np.minimum(counts, max_samples)
+    # the stable sort groups the links and keeps each link's order; on keys
+    # of 16 bits or fewer NumPy sorts by radix
+    order = np.argsort(lid.astype(np.min_scalar_type(n_ids)), kind="stable")
+    # a cut link's oldest rows lead its group: keep the last n of each
+    order = order[np.arange(len(order)) >= np.repeat(np.cumsum(counts) - n, counts)]
+    crc = crc[order]
+    base = np.repeat(crc[np.cumsum(n) - n], n)
+    valid = np.arange(n.max(initial=0)) < n[:, None]
+    states = np.zeros(valid.shape, np.int8)
+    counters = np.zeros(valid.shape, np.int32)
+    # a boolean mask fills row by row, which is the grouped rows' order.
+    # Rebased on the first sample, deltas are unchanged and the values stay
+    # in int32
+    states[valid] = state[order]
+    counters[valid] = np.clip(crc - base, -(2**31), 2**31 - 1)
+    return ids, states, counters, valid, ids[counts > n]
+
+
 def load_fleet_history(
     db_paths: List[str],
     window_seconds: float = DEFAULT_WINDOW_SECONDS,
@@ -99,33 +167,45 @@ def load_fleet_history(
     """Read every host DB's snapshots in the window into packed arrays.
 
     Returns (names, states, counters, valid, truncated) where names[i]
-    labels row i as ``<host>/<link>``; arrays are numpy [L, T] (int8, int32,
-    bool) with each link's samples left-aligned in ts order (``valid`` is a
-    prefix mask). A link exceeding ``max_samples`` keeps its LATEST samples
-    and is reported in ``truncated``, never silently.
+    labels row i as ``<host>/<link>``, each DB's links in name order; arrays
+    are numpy [L, T] (int8, int32, bool) with each link's samples
+    left-aligned in ts order (``valid`` is a prefix mask). A link exceeding
+    ``max_samples`` keeps its LATEST samples and is reported in
+    ``truncated``, never silently.
 
-    Recorded as the ``fleet_scan.load`` span: rows fetched from SQLite,
-    dropped by set-healthy tombstones and kept; seconds in the opens (connect
-    and tombstone read) and in SQLite's fetch calls, summed over the DBs; and
-    the DB that took longest from open to close.
+    Each DB is read into columns and packed into a block of its own links
+    with array operations; the blocks are copied into the fleet's arrays at
+    the end. Recorded as the ``fleet_scan.load`` span: rows fetched from
+    SQLite, dropped by set-healthy tombstones and kept; seconds in the opens
+    (connect and tombstone read) and in SQLite's calls, summed over the
+    DBs; and the DB that took longest, from its open to the end of its array
+    work.
     """
     t_now = now if now is not None else time.time()
     start = t_now - window_seconds
 
-    seqs: Dict[str, List[Tuple[int, int]]] = {}  # name → [(state, crc), ...]
-    names: List[str] = []
+    hosts: List[str] = []
     used_hosts: Dict[str, int] = {}
+    for path in db_paths:
+        host = os.path.splitext(os.path.basename(path))[0]
+        # two DBs named host1.db in different dirs must not merge
+        n_seen = used_hosts.get(host, 0)
+        used_hosts[host] = n_seen + 1
+        hosts.append(f"{host}-{n_seen + 1}" if n_seen else host)
+    # a DB whose own stem is another's disambiguated name shares its host:
+    # its rows join that host's links, after the earlier DB's
+    last_db = {host: i for i, host in enumerate(hosts)}
+
+    row_of: Dict[str, int] = {}  # name → fleet row, in the order first kept
+    pending: Dict[str, tuple] = {}  # host → (link ids, kept rows so far)
+    blocks = []
+    cut_rows: List[int] = []
     fetched = tombstoned = 0
     open_s = fetch_s = slowest_s = 0.0
     slowest = ""
     with _span("fleet_scan.load") as sp:
-        for path in db_paths:
-            host = os.path.splitext(os.path.basename(path))[0]
-            # two DBs named host1.db in different dirs must not merge
-            n_seen = used_hosts.get(host, 0)
-            used_hosts[host] = n_seen + 1
-            if n_seen:
-                host = f"{host}-{n_seen + 1}"
+        for i, (path, host) in enumerate(zip(db_paths, hosts)):
+            ids, kept = pending.pop(host, None) or (_LinkIds(), [])
             # read-only URI; the path is escaped because '?', '#' or '%' would
             # otherwise be parsed as URI syntax
             uri = f"file:{quote(os.path.abspath(path))}?mode=ro"
@@ -140,44 +220,56 @@ def load_fleet_history(
                 except sqlite3.OperationalError:
                     pass  # older DB without the table
                 global_ts = tombstones.get("*", 0.0)
-                t_fetch = time.perf_counter()
-                open_s += t_fetch - t_open
-                cur = conn.execute(
-                    f"SELECT link, ts, state, crc_errors FROM {TABLE} "
-                    "WHERE ts>=? ORDER BY link, ts ASC",
-                    (start,),
-                )
-                while True:
-                    batch = cur.fetchmany(FETCH_ROWS)
-                    fetch_s += time.perf_counter() - t_fetch
-                    if not batch:
-                        break
-                    fetched += len(batch)
-                    for link, ts, state, crc in batch:
-                        # honour set-healthy exactly like ICIStore.scan
-                        if ts < max(global_ts, tombstones.get(link, 0.0)):
-                            tombstoned += 1
-                            continue
-                        name = f"{host}/{link}"
-                        if name not in seqs:
-                            seqs[name] = []
-                            names.append(name)
-                        seqs[name].append((int(state), int(crc)))
-                    t_fetch = time.perf_counter()
+                open_s += time.perf_counter() - t_open
+                (lid, ts, state, crc), db_fetch_s = _fetch_columns(conn, start, ids)
             finally:
                 conn.close()
+            fetch_s += db_fetch_s
+            fetched += len(lid)
+            # honour set-healthy exactly like ICIStore.scan
+            links = list(ids)
+            floor = np.array([max(global_ts, tombstones.get(link, 0.0)) for link in links])
+            keep = ts >= floor[lid]
+            lid, state, crc = lid[keep], state[keep], crc[keep]
+            tombstoned += len(keep) - len(lid)
+            kept.append((lid, state, crc))
+            # the DB's links with rows take fleet rows in name order, as ORDER BY
+            # link gave them: SQLite's BINARY collation of UTF-8 is code-point
+            # order
+            for k in sorted(np.flatnonzero(np.bincount(lid, minlength=len(links))),
+                            key=links.__getitem__):
+                row_of.setdefault(f"{host}/{links[k]}", len(row_of))
+            if last_db[host] == i:
+                b_ids, *arrays, cut = _host_block(
+                    *(np.concatenate(col) for col in zip(*kept)), len(links), max_samples)
+                blocks.append((np.array([row_of[f"{host}/{links[k]}"] for k in b_ids], np.intp),
+                               *arrays))
+                cut_rows += [row_of[f"{host}/{links[k]}"] for k in cut]
+            else:
+                pending[host] = (ids, kept)
             db_s = time.perf_counter() - t_open
             if db_s > slowest_s:
                 slowest, slowest_s = host, db_s
 
         with _span("fleet_scan.pack") as pk:
-            states, counters, valid, truncated = _pack(names, seqs, max_samples)
+            names = list(row_of)
+            t_max = max([b[1].shape[1] for b in blocks] + [1])
+            states = np.zeros((len(names), t_max), dtype=np.int8)
+            counters = np.zeros((len(names), t_max), dtype=np.int32)
+            valid = np.zeros((len(names), t_max), dtype=bool)
+            for b_rows, *arrays in blocks:
+                for out, block in zip((states, counters, valid), arrays):
+                    out[b_rows, :block.shape[1]] = block
+            truncated = [names[r] for r in sorted(cut_rows)]
+            if truncated:
+                logger.warning(
+                    "fleet-scan truncated %d link(s) to the latest %d samples "
+                    "(history denser than the array bound): %s",
+                    len(truncated), max_samples, ", ".join(sorted(truncated)[:5]),
+                )
             pk.set_attr("links", len(names))
-            pk.set_attr("t_max", states.shape[1] if names else 0)
+            pk.set_attr("t_max", t_max if names else 0)
             pk.set_attr("truncated", len(truncated))
-        # the per-link lists' teardown (a tenth of a microsecond a row) is
-        # the loader's: free them inside its span, not on return
-        del seqs
         for key, value in (("dbs", len(db_paths)), ("rows_fetched", fetched),
                            ("rows_tombstoned", tombstoned),
                            ("rows_kept", fetched - tombstoned), ("open_s", open_s),
@@ -185,44 +277,6 @@ def load_fleet_history(
                            ("slowest_db_s", slowest_s)):
             sp.set_attr(key, value)
     return names, states, counters, valid, truncated
-
-
-def _pack(names: List[str], seqs: Dict[str, List[Tuple[int, int]]], max_samples: int):
-    """The loader's per-link sequences as left-aligned [L, T] arrays, each
-    link cut to its latest ``max_samples``; returns (states, counters,
-    valid, truncated)."""
-    if not names:
-        z = np.zeros((0, 1), dtype=np.int8)
-        return z, z.astype(np.int32), z.astype(bool), []
-
-    truncated: List[str] = []
-    for name, seq in seqs.items():
-        if len(seq) > max_samples:
-            seqs[name] = seq[-max_samples:]  # keep the latest
-            truncated.append(name)
-    if truncated:
-        logger.warning(
-            "fleet-scan truncated %d link(s) to the latest %d samples "
-            "(history denser than the array bound): %s",
-            len(truncated), max_samples, ", ".join(sorted(truncated)[:5]),
-        )
-    t_max = max(len(seq) for seq in seqs.values())
-    L = len(names)
-    states = np.zeros((L, t_max), dtype=np.int8)
-    counters = np.zeros((L, t_max), dtype=np.int32)
-    valid = np.zeros((L, t_max), dtype=bool)
-    for i, name in enumerate(names):
-        seq = seqs[name]
-        n = len(seq)
-        states[i, :n] = [s for s, _c in seq]
-        # rebase counters on the first sample: deltas are invariant and the
-        # values stay in int32
-        base = seq[0][1] if n else 0
-        counters[i, :n] = np.clip(
-            [c - base for _s, c in seq], -(2**31), 2**31 - 1
-        )
-        valid[i, :n] = True
-    return states, counters, valid, truncated
 
 
 def _scan_devices(device: DeviceLike) -> List[torch.device]:

@@ -114,6 +114,107 @@ def _sub_minute_flaps(tmp_path):
     return [str(tmp_path / "h.db")], dict(window_seconds=3600, now=NOW)
 
 
+def _raw_db(path, rows, tombstones=(), tombstone_table=True):
+    """A host DB with the store's schema and ``rows`` (ts, link, state, crc)
+    inserted in the order given, so rowids follow the list, not ts."""
+    db = DB(str(path))
+    store = ICIStore(db)
+    db.executemany(f"INSERT INTO {torch_fs.TABLE} (ts, link, state, crc_errors) "
+                   "VALUES (?, ?, ?, ?)", rows)
+    for link, ts in tombstones:
+        store.set_tombstone(link, ts=ts)
+    if not tombstone_table:
+        db.execute(f"DROP TABLE {torch_fs.TOMBSTONE_TABLE}")
+    db.close()
+    return str(path)
+
+
+def _history(links, minutes=20, seed=0, crc_step=(0, 40)):
+    """Rows of ``links``, one a minute up to NOW, in ts order: states mostly
+    up, CRC counters rising by a random step."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for k, link in enumerate(links):
+        crc = np.cumsum(rng.integers(*crc_step, minutes)) + 1000 * k
+        up = rng.random(minutes) > 0.15
+        rows += [(NOW - (minutes - m) * 60, link, int(up[m]), int(crc[m]))
+                 for m in range(minutes)]
+    return sorted(rows, key=lambda r: r[0])
+
+
+def _tied_timestamps(tmp_path):
+    # equal ts within a link: their rowids order them, as the (link, ts)
+    # index does
+    rows = [(NOW - 300, "a", 1, 0), (NOW - 240, "a", 0, 10), (NOW - 240, "a", 1, 500),
+            (NOW - 240, "b", 1, 7), (NOW - 240, "a", 0, 20), (NOW - 180, "b", 0, 7),
+            (NOW - 180, "b", 1, 300), (NOW - 120, "a", 1, 30)]
+    return [_raw_db(tmp_path / "h.db", rows)], dict(window_seconds=3600, now=NOW)
+
+
+def _out_of_time_order(tmp_path):
+    # a host whose rows went in shuffled: rowids do not follow ts
+    rows = _history([f"gpu{g}/nvlink{n}" for g in range(2) for n in range(3)], seed=1)
+    rows = [rows[i] for i in np.random.default_rng(2).permutation(len(rows))]
+    return ([_raw_db(tmp_path / "h.db", rows[: len(rows) // 2] + [rows[-1]]),
+             _raw_db(tmp_path / "g.db", rows)], dict(window_seconds=900, now=NOW))
+
+
+def _non_ascii_names(tmp_path):
+    # names that sort differently by bytes, case or code point than they read
+    links = ["z", "Z", "é/0", "e/0", "f", "中/1", "Ω", "😀", "\uffef", "a b", "a/b",
+             "gpu10/nvlink1", "gpu2/nvlink1", "ü"]
+    return ([_raw_db(tmp_path / "ö.db", _history(links, seed=3)),
+             _raw_db(tmp_path / "h.db", _history(links[::-1], seed=4))],
+            dict(window_seconds=3600, now=NOW))
+
+
+def _tombstoned_whole(tmp_path):
+    # a link tombstoned after its last sample, and a host whose '*'
+    # tombstone is newer than all its rows: neither is reported
+    links = ["l0", "l1", "l2"]
+    return ([_raw_db(tmp_path / "a.db", _history(links, seed=5),
+                     tombstones=[("l1", NOW), ("l2", NOW - 600)]),
+             _raw_db(tmp_path / "b.db", _history(links, seed=6), tombstones=[("*", NOW)]),
+             _raw_db(tmp_path / "c.db", _history(links, seed=7),
+                     tombstones=[("*", NOW - 300), ("l0", NOW - 600), ("l2", NOW - 120)])],
+            dict(window_seconds=3600, now=NOW))
+
+
+def _no_tombstone_table(tmp_path):
+    return ([_raw_db(tmp_path / "old.db", _history(["l0", "l1"], seed=8), tombstone_table=False),
+             _raw_db(tmp_path / "new.db", _history(["l0", "l1"], seed=9),
+                     tombstones=[("l0", NOW - 300)])],
+            dict(window_seconds=3600, now=NOW))
+
+
+def _empty_db(tmp_path):
+    return ([_raw_db(tmp_path / "a.db", _history(["l0"], seed=10)),
+             _raw_db(tmp_path / "empty.db", []),
+             _raw_db(tmp_path / "c.db", _history(["l1", "l0"], seed=11))],
+            dict(window_seconds=3600, now=NOW))
+
+
+def _stem_is_a_disambiguated_name(tmp_path):
+    # rack3/host-2.db takes the name rack2/host.db was given: the reference
+    # appends its rows to that host's links, after rack2's
+    for rack in ("rack1", "rack2", "rack3", "rack4"):
+        (tmp_path / rack).mkdir()
+    return ([_raw_db(tmp_path / "rack1" / "host.db", _history(["l0", "l1"], seed=12)),
+             _raw_db(tmp_path / "rack2" / "host.db", _history(["l1", "l3"], seed=13)),
+             _raw_db(tmp_path / "rack4" / "x.db", _history(["l0"], seed=14)),
+             _raw_db(tmp_path / "rack3" / "host-2.db", _history(["l2", "l3"], seed=15),
+                     tombstones=[("l3", NOW - 300)])],
+            dict(window_seconds=3600, now=NOW))
+
+
+def _crc_past_int32(tmp_path):
+    # counter values and deltas beyond int32 either way, clipped on rebase
+    big = [0, 2**40, 3, 2**62, 2**31, 2**31 - 1, -(2**31), 2**63 - 1, 5]
+    rows = [(NOW - 600 + 60 * i, "l0", 1, c) for i, c in enumerate(big)]
+    rows += [(NOW - 600 + 60 * i, "l1", 1, 2**62 - c) for i, c in enumerate(big)]
+    return [_raw_db(tmp_path / "h.db", rows)], dict(window_seconds=3600, now=NOW)
+
+
 FLEETS = {
     "down_flappy_crc_hot": _fleet_ab,
     "global_and_per_link_tombstones": _tombstones,
@@ -121,6 +222,44 @@ FLEETS = {
     "empty_window": _empty_window,
     "counter_rebase_and_reset": _counter_rebase,
     "sub_minute_flaps": _sub_minute_flaps,
+    "tied_timestamps": _tied_timestamps,
+    "rows_out_of_time_order": _out_of_time_order,
+    "non_ascii_link_names": _non_ascii_names,
+    "links_and_a_host_wholly_tombstoned": _tombstoned_whole,
+    "db_without_tombstone_table": _no_tombstone_table,
+    "empty_db": _empty_db,
+    "stem_is_a_disambiguated_name": _stem_is_a_disambiguated_name,
+}
+
+
+def _truncated(tmp_path):
+    # one link of each host past the bound, ties among its rows; each cut
+    # link's counter rebased on its first kept sample
+    rows = [(NOW - 1200 + 60 * i, "l0", int(i % 5 != 2), 10**6 + 37 * i * i) for i in range(14)]
+    rows += [(NOW - 1200 + 60 * i, "l1", 1, 5 * i) for i in range(4)]
+    rows += [(NOW - 300, "l0", 0, 7), (NOW - 300, "l0", 1, 3 * 10**9)]
+    rows.sort(key=lambda r: r[0])
+    return ([_raw_db(tmp_path / "a.db", rows),
+             _raw_db(tmp_path / "b.db", _history(["m0", "m1"], seed=16),
+                     tombstones=[("m1", NOW - 600)])],
+            dict(window_seconds=3600, now=NOW, max_samples=6))
+
+
+def _truncated_after_a_merge(tmp_path):
+    for rack in ("rack1", "rack2"):
+        (tmp_path / rack).mkdir()
+    return ([_raw_db(tmp_path / "rack1" / "host.db", _history(["l0"], minutes=5, seed=17)),
+             _raw_db(tmp_path / "rack2" / "host.db", _history(["l0", "l1"], minutes=4, seed=18)),
+             _raw_db(tmp_path / "host-2.db", _history(["l0"], minutes=6, seed=19))],
+            dict(window_seconds=3600, now=NOW, max_samples=7))
+
+
+# cases of the loader alone: they pass it max_samples, or hold counters whose
+# steps overflow the reference's int32 scan (ROADMAP C18)
+LOADER_ONLY = {
+    "crc_past_int32": _crc_past_int32,
+    "truncated_and_rebased": _truncated,
+    "truncated_after_a_merge": _truncated_after_a_merge,
 }
 
 
@@ -133,9 +272,9 @@ def _assert_same_history(ref, got):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("fleet", sorted(FLEETS))
+@pytest.mark.parametrize("fleet", sorted(FLEETS) + sorted(LOADER_ONLY))
 def test_load_fleet_history_matches_reference(tmp_path, fleet):
-    paths, kw = FLEETS[fleet](tmp_path)
+    paths, kw = {**FLEETS, **LOADER_ONLY}[fleet](tmp_path)
     _assert_same_history(jax_fs.load_fleet_history(paths, **kw),
                          torch_fs.load_fleet_history(paths, **kw))
 

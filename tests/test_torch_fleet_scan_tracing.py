@@ -7,6 +7,7 @@ annotations on the trace's clock, and the CLI's ``--spans``."""
 
 import json
 import sqlite3
+import time
 
 import numpy as np
 import pytest
@@ -149,6 +150,94 @@ def test_loader_counters_equal_counts_from_the_dbs(tmp_path):
     assert (pack["links"], pack["t_max"], pack["truncated"]) == ("60", "60", "0")
 
 
+PAUSE_S = 0.05
+
+
+class _SlowCursor:
+    """The loader's cursor, each fetch call ``PAUSE_S`` slower."""
+
+    def __init__(self, cur):
+        self.cur = cur
+
+    def fetchmany(self, n):
+        time.sleep(PAUSE_S)
+        return self.cur.fetchmany(n)
+
+
+class _SlowQueryConnection(sqlite3.Connection):
+    def execute(self, sql, *args):
+        cur = super().execute(sql, *args)
+        return _SlowCursor(cur) if sql == torch_fs.QUERY else cur
+
+
+def _slow_opens(monkeypatch):
+    real = sqlite3.connect
+
+    def connect(*args, **kwargs):
+        time.sleep(PAUSE_S)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch_fs.sqlite3, "connect", connect)
+
+
+def _slow_fetches(monkeypatch):
+    real = sqlite3.connect
+    monkeypatch.setattr(torch_fs.sqlite3, "connect",
+                        lambda *a, **kw: real(*a, factory=_SlowQueryConnection, **kw))
+
+
+def _slow_blocks(monkeypatch):
+    real = torch_fs._host_block
+
+    def block(*args):
+        time.sleep(PAUSE_S)
+        return real(*args)
+
+    monkeypatch.setattr(torch_fs, "_host_block", block)
+
+
+def _parts(spans):
+    """The loader's four parts in seconds: opens, SQLite's calls, the
+    per-host array work (the remainder) and the fleet's pack."""
+    load = next(s for s in spans if s["name"] == "fleet_scan.load")
+    pack = next(s for s in spans if s["name"] == "fleet_scan.pack")["duration_seconds"]
+    opens, fetch = (float(load["attrs"][k]) for k in ("open_s", "fetch_s"))
+    return {"open": opens, "fetch": fetch,
+            "arrays": load["duration_seconds"] - opens - fetch - pack, "pack": pack}
+
+
+@pytest.mark.parametrize("part, slow, pauses", [
+    ("open", _slow_opens, 3),          # one connect a DB
+    # each DB's 1,200 rows in the window in batches, then the empty fetch
+    ("fetch", _slow_fetches, 3 * (-(-1200 // torch_fs.FETCH_ROWS) + 1)),
+    ("arrays", _slow_blocks, 3),       # one block a host
+])
+def test_each_counter_times_its_own_part(tmp_path, monkeypatch, part, slow, pauses):
+    # a pause planted in one part of the loader shows in that part alone
+    paths = _tombstoned_fleet(tmp_path)
+    slow(monkeypatch)
+    _res, spans = _sweep(paths)
+    got = _parts(spans)
+    assert got[part] >= pauses * PAUSE_S
+    assert all(v < PAUSE_S for k, v in got.items() if k != part), got
+
+
+def test_pack_span_counts_the_fleet_it_packs(tmp_path):
+    # one host's links past the bound: the pack lists them and cuts T to it
+    paths = _tombstoned_fleet(tmp_path)
+    DEFAULT_TRACER.clear()
+    names, states, _c, _v, truncated = torch_fs.load_fleet_history(
+        paths, window_seconds=WINDOW, now=NOW, max_samples=45)
+    spans = _oldest_first()
+    # host0's '*' tombstone leaves 20 samples a link and host1's tombstone
+    # 10 of gpu0/nvlink3; the other 39 links keep 60
+    assert len(truncated) == 39 and states.shape == (60, 45)
+    assert _attrs(spans, "fleet_scan.pack") == {"links": "60", "t_max": "45",
+                                                "truncated": "39"}
+    load = _attrs(spans, "fleet_scan.load")
+    assert int(load["rows_kept"]) == 20 * 20 + 10 + 39 * 60
+
+
 @pytest.mark.parametrize("n_devices", [1, 3])
 def test_h2d_bytes_are_the_padded_layout(tmp_path, monkeypatch, n_devices):
     paths = _tombstoned_fleet(tmp_path)[:2]  # 40 links: 42 padded over 3
@@ -166,12 +255,14 @@ def test_h2d_bytes_are_the_padded_layout(tmp_path, monkeypatch, n_devices):
 
 @pytest.mark.parametrize("rows", [2 * torch_fs.FETCH_ROWS, torch_fs.FETCH_ROWS + 1])
 def test_batch_edges_give_the_reference_classes(tmp_path, rows):
-    # 16 links, all in the window: a batch ends on a link's edge (2 batches
-    # of 8 whole links) or inside one (the last row alone in a batch)
+    # 16 links, all in the window, read in ts order: a batch ends on a
+    # sweep's edge (2 batches of whole sweeps) or inside one (the newest
+    # sweep's one row alone in a batch)
     links = 16
     samples = [rows // links + (k < rows % links) for k in range(links)]
     assert sum(samples) == rows and min(samples) > 1
-    _host_db(tmp_path / "h.db", links, samples, t0=NOW - max(samples) * 10, step=10.0).close()
+    step = WINDOW / 2 / max(samples)
+    _host_db(tmp_path / "h.db", links, samples, t0=NOW - max(samples) * step, step=step).close()
     paths = [str(tmp_path / "h.db")]
     ref = jax_fs.fleet_scan(paths, window_seconds=WINDOW, now=NOW)
     got, spans = _sweep(paths)
