@@ -55,6 +55,7 @@ from gpud_tpu_torch import tracing
 from gpud_tpu_torch.device import DeviceLike, resolve_device
 from gpud_tpu_torch.ops.packed_scan import packed_from_numpy, scan_links_packed
 from gpud_tpu_torch.ops.window_scan import classify_links
+from gpud_tpu_torch.snapshot_reader import SnapshotDB
 
 logger = logging.getLogger(__name__)
 
@@ -72,15 +73,10 @@ COMPONENT = "fleet_scan"  # the spans' component in the trace ring
 
 # one query a DB: it walks only the window's entries of the (ts) index, in a
 # total order (ties by rowid, as the (link, ts) index orders them), so each
-# link's rows come in ts order whatever depth the DB stores
+# link's rows come in ts order whatever depth the DB stores. The native
+# reader (snapshot_reader.py) steps its rows straight into columns
 QUERY = (f"SELECT link, ts, state, crc_errors FROM {TABLE} "
          "WHERE ts>=? ORDER BY ts, rowid")
-# rows per cursor fetch, each batch turned into columns at once: a batch's row
-# tuples are the only per-row Python objects alive. A batch stays under the
-# collector's threshold of 700 new objects (gc.get_threshold), so no
-# collection walks the rows: with 4,096-row batches the collector took 10-12 %
-# of a sweep on an H100 host, with 512 nothing; 256 rows cost more calls
-FETCH_ROWS = 512
 
 
 @contextmanager
@@ -97,36 +93,12 @@ def _span(name: str, attrs: Optional[Dict] = None):
 
 
 class _LinkIds(dict):
-    """A host's link names → ids, numbered in the order first fetched."""
+    """A host's link names → ids, numbered in the order first fetched
+    (over its DBs, where the host has more than one)."""
 
     def __missing__(self, link):
         self[link] = n = len(self)
         return n
-
-
-def _fetch_columns(conn: sqlite3.Connection, start: float, ids: _LinkIds):
-    """The DB's rows at or after ``start`` in ts order as columns (link id,
-    ts, state, CRC), and the seconds spent in SQLite's calls."""
-    # a list a column: a tuple a batch, kept alive, would count against the
-    # collector's threshold
-    lids, tss, states, crcs = cols = ([np.empty(0, np.int32)], [np.empty(0)],
-                                      [np.empty(0, np.int8)], [np.empty(0, np.int64)])
-    t_fetch = time.perf_counter()
-    cur = conn.execute(QUERY, (start,))
-    fetch_s = 0.0
-    while True:
-        batch = cur.fetchmany(FETCH_ROWS)
-        fetch_s += time.perf_counter() - t_fetch
-        if not batch:
-            break
-        n = len(batch)
-        link, ts, state, crc = zip(*batch)
-        lids.append(np.fromiter(map(ids.__getitem__, link), np.int32, n))
-        tss.append(np.fromiter(ts, np.float64, n))
-        states.append(np.fromiter(state, np.int8, n))
-        crcs.append(np.fromiter(crc, np.int64, n))
-        t_fetch = time.perf_counter()
-    return [np.concatenate(col) for col in cols], fetch_s
 
 
 def _host_block(lid: np.ndarray, state: np.ndarray, crc: np.ndarray, n_ids: int,
@@ -173,12 +145,13 @@ def load_fleet_history(
     ``max_samples`` keeps its LATEST samples and is reported in
     ``truncated``, never silently.
 
-    Each DB is read into columns and packed into a block of its own links
-    with array operations; the blocks are copied into the fleet's arrays at
-    the end. Recorded as the ``fleet_scan.load`` span: rows fetched from
-    SQLite, dropped by set-healthy tombstones and kept; seconds in the opens
-    (connect and tombstone read) and in SQLite's calls, summed over the
-    DBs; and the DB that took longest, from its open to the end of its array
+    Each DB is read into columns by the native reader (snapshot_reader.py)
+    and packed into a block of its own links with array operations; the
+    blocks are copied into the fleet's arrays at the end. Recorded as the
+    ``fleet_scan.load`` span: rows fetched from SQLite, dropped by
+    set-healthy tombstones and kept; seconds in the opens (open and
+    tombstone read) and in the reader's window walk, summed over the DBs;
+    and the DB that took longest, from its open to the end of its array
     work.
     """
     t_now = now if now is not None else time.time()
@@ -210,21 +183,19 @@ def load_fleet_history(
             # otherwise be parsed as URI syntax
             uri = f"file:{quote(os.path.abspath(path))}?mode=ro"
             t_open = time.perf_counter()
-            conn = sqlite3.connect(uri, uri=True)
-            try:
+            with SnapshotDB(uri, f"SELECT link, ts FROM {TOMBSTONE_TABLE}") as db:
                 tombstones = {}
                 try:
-                    tombstones = dict(
-                        conn.execute(f"SELECT link, ts FROM {TOMBSTONE_TABLE}")
-                    )
+                    tombstones = db.tombstones()
                 except sqlite3.OperationalError:
                     pass  # older DB without the table
                 global_ts = tombstones.get("*", 0.0)
                 open_s += time.perf_counter() - t_open
-                (lid, ts, state, crc), db_fetch_s = _fetch_columns(conn, start, ids)
-            finally:
-                conn.close()
-            fetch_s += db_fetch_s
+                t_fetch = time.perf_counter()
+                db_links, (lid, ts, state, crc) = db.window(QUERY, start)
+                fetch_s += time.perf_counter() - t_fetch
+            # the DB numbers its links from 0: renumber them among the host's
+            lid = np.array([ids[link] for link in db_links], np.int32)[lid]
             fetched += len(lid)
             # honour set-healthy exactly like ICIStore.scan
             links = list(ids)

@@ -1,12 +1,14 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native code and load it with ctypes.
 
 Every ``gpud_tpu_torch/csrc/*.cu`` is compiled for ``sm_90a`` into one
 shared library with a plain C interface, on first use, under
-``<checkout>/build/kernels/``. The library's name carries a hash of the
-sources and flags, so a stale build is never loaded. There is no fallback:
-a missing or failing ``nvcc`` raises with the compiler's output. What
-``ptxas`` reports of each kernel (registers, spills, shared memory) is kept
-beside the library and read back by :func:`kernel_resources`.
+``<checkout>/build/kernels/``; every ``csrc/*.c`` is host code, compiled
+with the host's C compiler into a second library beside it
+(:func:`build_host`). A library's name carries a hash of its sources and
+flags, so a stale build is never loaded. There is no fallback: a missing or
+failing compiler raises with its output. What ``ptxas`` reports of each
+kernel (registers, spills, shared memory) is kept beside the kernel library
+and read back by :func:`kernel_resources`.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import functools
 import hashlib
 import os
 import re
+import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -28,6 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, spills and shared memory, to stderr
 )
+CC_FLAGS = ("-std=c11", "-O2", "-Wall", "-shared", "-fPIC")
 
 # C entry points and their ctypes signatures: pointers and the stream as
 # c_void_p, sizes as c_int64; each returns a cudaError_t
@@ -37,17 +42,44 @@ SIGNATURES = {
 }
 
 
-def _sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def _sources(suffix: str = ".cu") -> list:
+    return sorted(CSRC_DIR.glob(f"*{suffix}"))
+
+
+def _hashed(stem: str, flags: Sequence[str], sources: list) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags is built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libgpud_tpu_torch_{h.hexdigest()[:16]}.so"
+    """Where the kernel library for the current sources and flags is built."""
+    return _hashed("libgpud_tpu_torch", NVCC_FLAGS, _sources())
+
+
+def host_library_path(link: Sequence[str]) -> Path:
+    """Where the host library of ``csrc/*.c`` is built, linked with ``link``
+    (libraries given by path)."""
+    return _hashed("libgpud_tpu_torch_host", (*CC_FLAGS, *link), _sources(".c"))
+
+
+def _compile(cmd: list, so: Path, log: Optional[Path] = None) -> Path:
+    """Run the compiler ``cmd`` with its output beside ``so``, then move it
+    into place: atomic, so a concurrent build never sees half a file."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{Path(cmd[0]).name} failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    if log is not None:
+        log.write_text(proc.stderr)  # before the library appears
+    os.replace(tmp, so)
+    return so
 
 
 def _nvcc() -> str:
@@ -68,18 +100,20 @@ def build() -> Path:
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    _ptxas_log(so).write_text(proc.stderr)  # before the library appears
-    os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-    return so
+    return _compile([_nvcc(), *NVCC_FLAGS, *map(str, _sources())], so, _ptxas_log(so))
+
+
+def build_host(link: Sequence[str]) -> Path:
+    """Compile ``csrc/*.c`` with the host's C compiler (``cc``), linked with
+    ``link``, if the hashed library is missing; return its path."""
+    so = host_library_path(link)
+    if so.exists():
+        return so
+    cc = shutil.which("cc")
+    if cc is None:
+        raise RuntimeError("cc not found: the host library of gpud_tpu_torch needs a C "
+                           "compiler on PATH")
+    return _compile([cc, *CC_FLAGS, *map(str, _sources(".c")), *link], so)
 
 
 def _ptxas_log(so: Path) -> Path:

@@ -1,21 +1,34 @@
 """The port's fleet-scan loader (gpud_tpu_torch/fleet_scan.py
 ``load_fleet_history``) on the store's own schema: its query walks the
-window on the ``(ts)`` index whatever depth the DB holds, and it holds no
+window on the ``(ts)`` index whatever depth the DB holds, it holds no
 Python object per row (its arrays equal the reference's in
-tests/test_torch_fleet_scan.py)."""
+tests/test_torch_fleet_scan.py), and its native reader
+(gpud_tpu_torch/snapshot_reader.py) reads what a plain ``sqlite3`` reader
+reads and raises what it raised."""
 
+import json
+import os
 import sqlite3
+import subprocess
+import sys
+import textwrap
 import tracemalloc
+from pathlib import Path
+from urllib.parse import quote
 
 import numpy as np
 import pytest
 
 from gpud_tpu_torch import fleet_scan as torch_fs
+from gpud_tpu_torch import snapshot_reader
 from gpud_tpu_torch.components.gpu.nvlink_store import NVLinkStore
+from gpud_tpu_torch.ops import _build
 from gpud_tpu_torch.sqlite import DB
 
 NOW = 1_700_000_000.0
 TABLE = torch_fs.TABLE
+REPO = Path(__file__).resolve().parent.parent
+TOMBSTONE_QUERY = f"SELECT link, ts FROM {torch_fs.TOMBSTONE_TABLE}"
 
 
 def _host_db(path, links, minutes, seed=0):
@@ -53,11 +66,9 @@ def test_query_walks_only_the_window_on_the_ts_index(tmp_path, analyzed):
     assert not any("TEMP B-TREE" in step for step in plan), plan
 
 
-# bytes the loader may hold per row fetched, besides its output arrays and
-# one batch's row tuples; a loader that keeps a Python object per row holds
-# some 95 B a row
+# bytes the loader may hold per row fetched, besides its output arrays; a
+# loader that keeps a Python object per row holds some 95 B a row
 BYTES_PER_ROW = 32
-BATCH_ROW_BYTES = 600
 
 
 def test_loader_holds_no_python_object_per_row(tmp_path):
@@ -74,5 +85,293 @@ def test_loader_holds_no_python_object_per_row(tmp_path):
     assert len(names) == hosts * links and arrays[0].shape == (hosts * links, minutes)
     assert int(arrays[2].sum()) == rows and truncated == []
     out = sum(a.nbytes for a in arrays)
-    assert peak <= out + BYTES_PER_ROW * rows + BATCH_ROW_BYTES * torch_fs.FETCH_ROWS, (
-        peak, out, rows)
+    assert peak <= out + BYTES_PER_ROW * rows, (peak, out, rows)
+
+
+# DBs that the daemon's schema would refuse, written straight with sqlite3:
+# an untyped column keeps what it is given (no affinity converts it)
+LOOSE_DDL = f"CREATE TABLE {TABLE} (ts, link, state, crc_errors)"
+
+
+def _loose_db(path, rows, ddl=LOOSE_DDL):
+    conn = sqlite3.connect(path)
+    try:
+        conn.execute(ddl)
+        conn.execute(f"CREATE INDEX idx_{TABLE}_ts ON {TABLE} (ts)")
+        conn.executemany(f"INSERT INTO {TABLE} (ts, link, state, crc_errors) VALUES (?,?,?,?)",
+                         rows)
+        conn.commit()
+    finally:
+        conn.close()
+    return str(path)
+
+
+GOOD_ROWS = [(NOW - 120, "gpu0/nvlink0", 1, 5), (NOW - 60, "gpu0/nvlink0", 1, 7)]
+COLUMN = {"ts": 0, "link": 1, "state": 2, "crc_errors": 3}
+
+
+def _with(column, value):
+    row = [NOW - 30, "gpu0/nvlink0", 1, 9]
+    row[COLUMN[column]] = value
+    return GOOD_ROWS + [tuple(row)]
+
+
+@pytest.mark.parametrize("column, value, exc, message", [
+    ("state", None, TypeError, "not 'NoneType'"),
+    ("crc_errors", None, TypeError, "not 'NoneType'"),
+    ("state", "abc", ValueError, "invalid literal for int() with base 10: 'abc'"),
+    ("crc_errors", "abc", ValueError, "invalid literal for int() with base 10: 'abc'"),
+    ("ts", "abc", ValueError, "could not convert string to float: 'abc'"),
+    ("state", b"ab", ValueError, "invalid literal for int() with base 10: b'ab'"),
+    ("ts", b"ab", ValueError, "could not convert string to float: b'ab'"),
+    ("state", 200, OverflowError, "200 out of bounds for int8"),
+    ("state", -129, OverflowError, "-129 out of bounds for int8"),
+    ("crc_errors", 1e30, OverflowError, "too large"),
+    ("state", float("inf"), OverflowError, "infinity"),
+])
+def test_a_value_numpy_cannot_convert_raises_as_it_did(tmp_path, column, value, exc, message):
+    # NULL, TEXT or BLOB in a number's column, or a state outside int8: the
+    # loader raises what np.fromiter raised on the value
+    path = _loose_db(tmp_path / "h.db", _with(column, value))
+    with pytest.raises(exc) as err:
+        torch_fs.load_fleet_history([path], window_seconds=3600, now=NOW)
+    assert message in str(err.value)
+
+
+@pytest.mark.parametrize("column, value, converted", [
+    ("state", 1.9, 1),            # a REAL in an integer column: int() truncates
+    ("state", -1.5, -1),
+    ("crc_errors", 8.7, 8),
+    ("state", "0", 0),            # a numeral as TEXT: np.fromiter parses it
+    ("crc_errors", b"12", 12),
+    ("ts", "1699999990.5", 1699999990.5),
+    ("ts", int(NOW) - 10, NOW - 10),  # an INTEGER time
+])
+def test_a_value_numpy_converts_converts_as_it_did(tmp_path, column, value, converted):
+    path = _loose_db(tmp_path / "h.db", _with(column, value))
+    names, states, counters, valid, _t = torch_fs.load_fleet_history(
+        [path], window_seconds=3600, now=NOW)
+    assert names == ["h/gpu0/nvlink0"] and valid.tolist() == [[True] * 3]
+    if column == "state":
+        assert states.tolist() == [[1, 1, converted]]
+    elif column == "crc_errors":
+        assert counters.tolist() == [[0, 2, converted - 5]]
+    else:  # the row stays last in ts order
+        assert counters.tolist() == [[0, 2, 4]]
+
+
+def test_a_link_name_that_is_not_utf8_raises_operational_error(tmp_path):
+    path = _loose_db(tmp_path / "h.db", GOOD_ROWS)
+    conn = sqlite3.connect(path)
+    conn.execute(f"UPDATE {TABLE} SET link=CAST(X'ff61' AS TEXT) WHERE rowid=2")
+    conn.commit()
+    conn.close()
+    with pytest.raises(sqlite3.OperationalError, match="Could not decode to UTF-8 column 'link'"):
+        torch_fs.load_fleet_history([path], window_seconds=3600, now=NOW)
+
+
+def _not_a_db(tmp_path):
+    path = tmp_path / "notes.db"
+    path.write_text("not a database " * 100)
+    return path
+
+
+def _zero_bytes(tmp_path):
+    path = tmp_path / "zero.db"
+    path.write_bytes(b"")
+    return path
+
+
+@pytest.mark.parametrize("make, exc, message", [
+    (lambda tmp: tmp / "missing.db", sqlite3.OperationalError, "unable to open database file"),
+    (_not_a_db, sqlite3.DatabaseError, "file is not a database"),
+    # SQLite takes an empty file for an empty DB: no tombstones, no table
+    (_zero_bytes, sqlite3.OperationalError, f"no such table: {TABLE}"),
+], ids=["missing", "not_a_db", "zero_bytes"])
+def test_a_db_that_cannot_be_read_raises_sqlite3_s_class(tmp_path, make, exc, message):
+    path = make(tmp_path)
+    with pytest.raises(exc) as err:
+        torch_fs.load_fleet_history([str(path)], window_seconds=3600, now=NOW)
+    assert type(err.value) is exc and str(err.value) == message
+
+
+def _uri(path):
+    return f"file:{quote(os.path.abspath(path))}?mode=ro"
+
+
+def _oracle(path, start):
+    """A plain ``sqlite3`` reader of what the native reader reads: the
+    tombstones (or the class and message of their read's failure), the link
+    names in the order first fetched and the four columns."""
+    conn = sqlite3.connect(_uri(path), uri=True)
+    try:
+        try:
+            tombstones = dict(conn.execute(TOMBSTONE_QUERY))
+        except sqlite3.Error as e:
+            tombstones = (type(e), str(e))
+        rows = conn.execute(torch_fs.QUERY, (start,)).fetchall()
+    finally:
+        conn.close()
+    ids = {}
+    lid = [ids.setdefault(link, len(ids)) for link, *_r in rows]
+    # each column converted as the Python loader converted its batches
+    return tombstones, list(ids), [np.array(lid, np.int32)] + [
+        np.fromiter((r[k] for r in rows), dtype, len(rows))
+        for k, dtype in ((1, np.float64), (2, np.int8), (3, np.int64))]
+
+
+def _read(path, start):
+    """The same through the native reader."""
+    with snapshot_reader.SnapshotDB(_uri(path), TOMBSTONE_QUERY) as db:
+        try:
+            tombstones = db.tombstones()
+        except sqlite3.Error as e:
+            tombstones = (type(e), str(e))
+        names, columns = db.window(torch_fs.QUERY, start)
+    return tombstones, names, list(columns)
+
+
+def _seeded(tmp_path):
+    # a day of 36 links; tombstones on one link and on the whole host
+    path = _host_db(tmp_path / "h.db", links=36, minutes=24 * 60, seed=3)
+    db = DB(path)
+    NVLinkStore(db).set_tombstone("gpu1/nvlink4", NOW - 1800)
+    NVLinkStore(db).set_tombstone("*", NOW - 7200)
+    db.close()
+    return path
+
+
+def _window_edge(tmp_path):
+    # a sample exactly on the window's start is in it; one a hair before is not
+    start = NOW - 3600
+    return _loose_db(tmp_path / "h.db", [
+        (np.nextafter(start, 0), "gpu0/nvlink0", 0, 1), (start, "gpu0/nvlink1", 1, 2),
+        (start, "gpu0/nvlink0", 1, 3), (np.nextafter(start, NOW), "gpu0/nvlink1", 0, 4),
+        (NOW - 60.25, "gpu0/nvlink1", 0, 5)])
+
+
+def _values_to_convert(tmp_path):
+    # values the C side hands back to NumPy, among rows it converts itself:
+    # the edges of int8, an INTEGER time, REAL states and CRCs, numerals as
+    # TEXT and BLOB, a CRC past 32 bits
+    return _loose_db(tmp_path / "h.db", [
+        (NOW - 600.5, "gpu0/nvlink0", -128, 2**62), (int(NOW) - 500, "gpu0/nvlink1", 127, -7),
+        (NOW - 400.75, "gpu0/nvlink0", 1.9, 8.7), (NOW - 300, "gpu0/nvlink1", "0", b"12"),
+        (NOW - 200, "gpu0/nvlink0", -1.5, "-3"), (NOW - 100, "gpu0/nvlink1", 1, 2**40 + 0.5),
+        ("1699999990.5", "gpu0/nvlink0", b"1", 4)])
+
+
+def _link_before_the_window(tmp_path):
+    # gpu0/nvlink2 has rows, all before the window
+    return _loose_db(tmp_path / "h.db", [
+        (NOW - 7200, "gpu0/nvlink2", 1, 1), (NOW - 60, "gpu0/nvlink0", 1, 2),
+        (NOW - 30, "gpu0/nvlink1", 1, 3), (NOW - 5000, "gpu0/nvlink2", 0, 4)])
+
+
+def _empty(tmp_path):
+    db = DB(str(tmp_path / "h.db"))
+    NVLinkStore(db)
+    db.close()
+    return str(tmp_path / "h.db")
+
+
+def _no_tombstone_table(tmp_path):
+    return _loose_db(tmp_path / "h.db", GOOD_ROWS)
+
+
+def _uri_syntax_in_the_path(tmp_path):
+    d = tmp_path / "a?b#c%20d"
+    d.mkdir()
+    return _host_db(d / "h%3F?#.db", links=18, minutes=90, seed=5)
+
+
+def _wide_names(tmp_path):
+    # more names than the reader's first table holds, some of them long,
+    # one empty, one not ASCII
+    names = ["", "gpu0/nvlink\u00e9"] + [f"link-{k:04d}" * (1 + k % 9) for k in range(600)]
+    return _loose_db(tmp_path / "h.db", [
+        (NOW - 3000 + k, names[k * 7 % len(names)], k % 2, k) for k in range(5000)])
+
+
+@pytest.mark.parametrize("make", [_seeded, _window_edge, _values_to_convert,
+                                  _link_before_the_window, _empty, _no_tombstone_table,
+                                  _uri_syntax_in_the_path, _wide_names])
+def test_the_reader_reads_what_sqlite3_reads(tmp_path, make):
+    path = make(tmp_path)
+    start = NOW - 3600
+    want_tombstones, want_names, want = _oracle(path, start)
+    tombstones, names, got = _read(path, start)
+    assert tombstones == want_tombstones and names == want_names
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+        assert g.base is None or g.base.nbytes == g.nbytes  # exactly the rows, owned
+    if make is _no_tombstone_table:
+        assert tombstones == (sqlite3.OperationalError,
+                              f"no such table: {torch_fs.TOMBSTONE_TABLE}")
+
+
+@pytest.mark.parametrize("make", [lambda tmp: tmp / "missing.db", _not_a_db],
+                         ids=["missing", "not_a_db"])
+def test_the_reader_raises_what_sqlite3_raises(tmp_path, make):
+    path = make(tmp_path)
+    with pytest.raises(sqlite3.Error) as want:
+        _oracle(path, NOW - 3600)
+    with pytest.raises(sqlite3.Error) as got:
+        _read(path, NOW - 3600)
+    assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
+    assert got.value.sqlite_errorcode == want.value.sqlite_errorcode
+
+
+def test_a_link_name_that_is_not_text_raises_type_error(tmp_path):
+    path = _loose_db(tmp_path / "h.db", _with("link", b"gpu0/nvlink0"))
+    with pytest.raises(TypeError, match="SQLite type BLOB"):
+        _read(path, NOW - 3600)
+
+
+def test_the_reader_runs_on_the_interpreter_s_sqlite():
+    assert snapshot_reader.sqlite_version() == sqlite3.sqlite_version
+    assert Path(snapshot_reader.sqlite_library()).name.startswith("libsqlite3.so")
+
+
+def test_the_reader_builds_in_the_first_load_and_not_at_import(tmp_path):
+    # a clean build dir: importing the loader compiles nothing, its first
+    # call compiles the reader once, under the name its sources hash to
+    db = _host_db(tmp_path / "h.db", links=18, minutes=10)
+    code = textwrap.dedent(f"""
+        import json, subprocess, sys
+        from pathlib import Path
+        calls, real = [], subprocess.run
+        def run(cmd, *a, **k):
+            calls.append(Path(cmd[0]).name)
+            return real(cmd, *a, **k)
+        subprocess.run = run
+        from gpud_tpu_torch.ops import _build
+        _build.BUILD_DIR = Path({str(tmp_path / "build")!r})
+        from gpud_tpu_torch import fleet_scan, snapshot_reader
+        listing = lambda: sorted(p.name for p in _build.BUILD_DIR.glob("*"))
+        before = [list(calls), listing()]
+        names, *_rest = fleet_scan.load_fleet_history([{db!r}], 3600, now={NOW!r})
+        fleet_scan.load_fleet_history([{db!r}], 3600, now={NOW!r})
+        want = _build.host_library_path((snapshot_reader.sqlite_library(),)).name
+        print(json.dumps([before, calls, listing(), want, len(names)]))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    before, calls, listing, want, n_links = json.loads(proc.stdout)
+    assert before == [[], []]
+    assert calls == ["cc"] and listing == [want] and n_links == 18
+
+
+def test_the_reader_s_name_changes_with_its_source_and_flags(tmp_path, monkeypatch):
+    for src in (REPO / "gpud_tpu_torch" / "csrc").glob("*.c"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    name = _build.host_library_path(("/lib/libsqlite3.so.0",))
+    assert name == _build.host_library_path(("/lib/libsqlite3.so.0",))
+    assert name != _build.host_library_path(("/usr/local/lib/libsqlite3.so.0",))
+    assert name.name.startswith("libgpud_tpu_torch_host_")
+    src = next(tmp_path.glob("*.c"))
+    src.write_text(src.read_text() + "\n/* changed */\n")
+    assert _build.host_library_path(("/lib/libsqlite3.so.0",)) != name
+    assert _build.library_path().name.startswith("libgpud_tpu_torch_")  # the kernels' apart

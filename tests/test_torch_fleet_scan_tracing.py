@@ -1,8 +1,8 @@
 """The spans and counters that a sweep of the port's fleet scan
 (gpud_tpu_torch/fleet_scan.py) records in the trace ring: the tree of
 ``fleet_scan.*`` spans, the loader's row counts against counts taken
-straight from the DBs, the bytes copied, the batched cursor at the edges of
-a batch against the reference's classes, the same spans as profiler
+straight from the DBs, the bytes copied, the reader's columns at the edges
+of their growth against the reference's classes, the same spans as profiler
 annotations on the trace's clock, and the CLI's ``--spans``."""
 
 import json
@@ -17,6 +17,7 @@ from gpud_tpu import fleet_scan as jax_fs
 
 from gpud_tpu_torch import cli as torch_cli
 from gpud_tpu_torch import fleet_scan as torch_fs
+from gpud_tpu_torch import snapshot_reader
 from gpud_tpu_torch.components.gpu.nvlink_store import NVLinkStore
 from gpud_tpu_torch.sqlite import DB
 from gpud_tpu_torch.tracing import DEFAULT_TRACER
@@ -153,37 +154,23 @@ def test_loader_counters_equal_counts_from_the_dbs(tmp_path):
 PAUSE_S = 0.05
 
 
-class _SlowCursor:
-    """The loader's cursor, each fetch call ``PAUSE_S`` slower."""
+def _slow(monkeypatch, name):
+    """The reader's ``name`` call, each ``PAUSE_S`` slower."""
+    real = getattr(snapshot_reader.SnapshotDB, name)
 
-    def __init__(self, cur):
-        self.cur = cur
-
-    def fetchmany(self, n):
-        time.sleep(PAUSE_S)
-        return self.cur.fetchmany(n)
-
-
-class _SlowQueryConnection(sqlite3.Connection):
-    def execute(self, sql, *args):
-        cur = super().execute(sql, *args)
-        return _SlowCursor(cur) if sql == torch_fs.QUERY else cur
-
-
-def _slow_opens(monkeypatch):
-    real = sqlite3.connect
-
-    def connect(*args, **kwargs):
+    def slow(*args, **kwargs):
         time.sleep(PAUSE_S)
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(torch_fs.sqlite3, "connect", connect)
+    monkeypatch.setattr(snapshot_reader.SnapshotDB, name, slow)
+
+
+def _slow_opens(monkeypatch):
+    _slow(monkeypatch, "__init__")
 
 
 def _slow_fetches(monkeypatch):
-    real = sqlite3.connect
-    monkeypatch.setattr(torch_fs.sqlite3, "connect",
-                        lambda *a, **kw: real(*a, factory=_SlowQueryConnection, **kw))
+    _slow(monkeypatch, "window")
 
 
 def _slow_blocks(monkeypatch):
@@ -207,9 +194,8 @@ def _parts(spans):
 
 
 @pytest.mark.parametrize("part, slow, pauses", [
-    ("open", _slow_opens, 3),          # one connect a DB
-    # each DB's 1,200 rows in the window in batches, then the empty fetch
-    ("fetch", _slow_fetches, 3 * (-(-1200 // torch_fs.FETCH_ROWS) + 1)),
+    ("open", _slow_opens, 3),          # one open a DB
+    ("fetch", _slow_fetches, 3),       # one window walk a DB
     ("arrays", _slow_blocks, 3),       # one block a host
 ])
 def test_each_counter_times_its_own_part(tmp_path, monkeypatch, part, slow, pauses):
@@ -253,11 +239,12 @@ def test_h2d_bytes_are_the_padded_layout(tmp_path, monkeypatch, n_devices):
     assert sum(s["name"] == "fleet_scan.gather" for s in spans) == 1
 
 
-@pytest.mark.parametrize("rows", [2 * torch_fs.FETCH_ROWS, torch_fs.FETCH_ROWS + 1])
+@pytest.mark.parametrize("rows", [2 * snapshot_reader.FIRST_ROWS,
+                                  snapshot_reader.FIRST_ROWS + 1])
 def test_batch_edges_give_the_reference_classes(tmp_path, rows):
-    # 16 links, all in the window, read in ts order: a batch ends on a
-    # sweep's edge (2 batches of whole sweeps) or inside one (the newest
-    # sweep's one row alone in a batch)
+    # 16 links, all in the window, read in ts order into the reader's
+    # columns, which double when full: they end full on a sweep's edge (one
+    # growth, then whole sweeps) or grow for the newest sweep's one row
     links = 16
     samples = [rows // links + (k < rows % links) for k in range(links)]
     assert sum(samples) == rows and min(samples) > 1
