@@ -1,22 +1,50 @@
-/* A columnar reader of one host's NVLink snapshot DB, for the fleet loader
+/* A reader of host NVLink snapshot DBs, for the fleet loader
  * (gpud_tpu_torch/snapshot_reader.py wraps it with ctypes).
  *
- * tpud_open opens the DB read-only through a URI, as Python's sqlite3 does
- * (busy timeout 5,000 ms), and reads the tombstone table. tpud_window runs
- * the window's query and steps its rows straight into four columns: link id
- * (the order first fetched), ts, state and CRC. A value it does not convert
- * itself (a NULL, TEXT or BLOB number, a REAL state or CRC, a state outside
- * int8) stops the walk with TPUD_VALUE; the caller converts it, and
- * tpud_resume stores the result and walks on. At the end the DB is closed;
- * the columns and the link names live until tpud_close.
+ * tpud_open opens a DB read-only through a URI, as Python's sqlite3 does
+ * (busy timeout 5,000 ms), and reads the tombstone table. The window's query
+ * then runs in one of two ways:
+ *
+ * - tpud_window steps its rows straight into four columns: link id (the
+ *   order first fetched), ts, state and CRC.
+ * - a pool's read (below) writes each row straight into the DB's block: one row of
+ *   [links, t] int8 states, int32 counters and valid flags a link, the
+ *   row's samples left-aligned in ts order. A sample before its link's
+ *   set-healthy floor is dropped as it arrives; a link keeps its latest
+ *   max_samples samples, its counter rebased on the first kept one and
+ *   clipped to int32. The block (counters, then states, then valid flags)
+ *   lives in pages mapped for it alone, apart from malloc's heap, so they
+ *   go back to the system the moment the caller lets it go; it is packed
+ *   to its final shape where it was written, and handed to the caller.
+ *
+ * A value neither converts itself (a NULL, TEXT or BLOB number, a REAL state
+ * or CRC, a state outside int8) stops the walk with TPUD_VALUE; the caller
+ * converts it, and tpud_resume stores the result and walks on. At the end
+ * the DB is closed; what was read lives until tpud_close.
+ *
+ * A pool (tpud_pool_start) reads a list of DBs as the loader asks for them.
+ * The thread that takes the DBs (tpud_pool_take) opens each, reads its
+ * tombstones into floors, prepares its walk and sizes its block, a window of
+ * DBs ahead; worker threads of small stacks walk them; the taking thread
+ * ends each walk. A worker calls neither malloc nor free: what it needs is
+ * allocated, and what it drops freed, by the taking thread, so no worker
+ * has a malloc arena of its own to keep its peak resident after the load.
+ * Where the pool has no thread, the taking thread walks each DB too. A read
+ * stops where only the caller can go on.
  *
  * SQLite's header is not needed: the few functions used are declared here,
  * and the library is the one the interpreter's sqlite3 module loaded.
  */
 
+#define _GNU_SOURCE
+#include <errno.h>
+#include <pthread.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <sys/mman.h>
+#include <time.h>
+#include <unistd.h>
 
 typedef struct sqlite3 sqlite3;
 typedef struct sqlite3_stmt sqlite3_stmt;
@@ -24,6 +52,8 @@ typedef struct sqlite3_stmt sqlite3_stmt;
 int sqlite3_open_v2(const char *filename, sqlite3 **db, int flags, const char *vfs);
 int sqlite3_busy_timeout(sqlite3 *db, int ms);
 int sqlite3_close_v2(sqlite3 *db);
+int sqlite3_exec(sqlite3 *db, const char *sql, void *callback, void *arg, char **errmsg);
+int sqlite3_db_config(sqlite3 *db, int op, ...);
 int sqlite3_extended_errcode(sqlite3 *db);
 const char *sqlite3_errmsg(sqlite3 *db);
 int sqlite3_prepare_v2(sqlite3 *db, const char *sql, int n, sqlite3_stmt **stmt, const char **tail);
@@ -38,6 +68,7 @@ const unsigned char *sqlite3_column_text(sqlite3_stmt *stmt, int i);
 int sqlite3_column_bytes(sqlite3_stmt *stmt, int i);
 
 #define SQLITE_OK 0
+#define SQLITE_ERROR 1
 #define SQLITE_NOMEM 7
 #define SQLITE_ROW 100
 #define SQLITE_DONE 101
@@ -49,9 +80,19 @@ int sqlite3_column_bytes(sqlite3_stmt *stmt, int i);
 #define SQLITE_OPEN_READONLY 0x00000001
 #define SQLITE_OPEN_URI 0x00000040
 #define SQLITE_OPEN_NOMUTEX 0x00008000
+#define SQLITE_DBCONFIG_LOOKASIDE 1001
 
 #define TPUD_VALUE 1000 /* a value for the caller to convert */
+#define TPUD_REREAD 1001 /* a block this reader cannot make exactly: read columns */
+#define TPUD_FLOORS 1002 /* tombstones only the caller can judge: no walk started */
 #define BUSY_TIMEOUT_MS 5000 /* Python's sqlite3.connect(timeout=5.0) */
+/* the window's walk visits each index and table page once, in order: the
+ * few pages on the paths from the two b-trees' roots serve it, where
+ * SQLite's default holds 2 MB a connection. Set before the first page is
+ * read, it also bounds the pages SQLite allocates at once for the cache,
+ * so a walk allocates none. A pool holds a window of DBs open at once:
+ * each keeps this little, and no lookaside buffer */
+#define WALK_CACHE "PRAGMA cache_size=8"
 
 /* One value as SQLite typed it; TEXT and BLOB bytes at p, n long. */
 typedef struct {
@@ -62,6 +103,19 @@ typedef struct {
     int64_t n;
 } tpud_value;
 
+/* Names, numbered in the order added; looked up by open addressing. */
+typedef struct {
+    int64_t n;
+    char *names;            /* end to end: name k's */
+    int64_t *ends;          /* ends at ends[k], starts at the end before */
+    int64_t names_cap;
+    int64_t ends_cap;
+    int64_t *slots;         /* id + 1, 0 empty */
+    int64_t n_slots;
+} name_table;
+
+typedef struct tpud_pool tpud_pool;
+
 typedef struct {
     /* read by the caller (the ctypes Structure mirrors these fields) */
     int64_t errcode;        /* SQLite's extended code of the last failure */
@@ -69,32 +123,131 @@ typedef struct {
     int64_t tomb_rc;        /* the tombstone read's result: 0 or a failure */
     int64_t n_tombstones;
     tpud_value *tombstones; /* link, ts of each row */
-    int64_t n_rows;
-    int32_t *lid;
+    int64_t n_rows;         /* rows fetched */
+    int32_t *lid;           /* tpud_window's columns */
     double *ts;
     int8_t *state;
     int64_t *crc;
-    int64_t n_links;
-    char *names;            /* the TEXT names by id, end to end: link k's */
-    int64_t *name_ends;     /* end at name_ends[k], its start the end before */
+    name_table links;       /* the link names by id */
     int64_t bad_col;        /* the column of the value to convert */
     tpud_value bad;
+    int64_t n_tombstoned;   /* a block's walk: rows dropped by a floor */
+    int64_t t;              /* and its block, [links.n, t] each */
+    char *b_buf;            /* the block: counters, states, valid flags */
+    int64_t b_bytes;        /* and the bytes mapped for it */
+    int64_t *kept;          /* samples a link kept, before the cut */
     /* private */
     sqlite3 *db;
     sqlite3_stmt *stmt;
-    int64_t cap;
-    int64_t *slots;         /* open addressing: link id + 1, 0 empty */
-    int64_t n_slots;
-    int64_t names_cap;
-    int64_t ends_cap;
+    int block;              /* the walk writes a block, else columns */
+    int64_t cap;            /* the columns' rows */
+    int32_t r_lid;          /* the row being read */
+    double r_ts;
+    int8_t r_state;
+    int64_t r_crc;
+    name_table floors;      /* tombstoned link names, their floors in floor_of */
+    double *floor_of;
+    double floor0;          /* the floor of a link without a tombstone */
+    int64_t max_samples;
+    int64_t links_cap;      /* the block's rows and samples */
+    int64_t t_cap;
+    int32_t *b_counter;     /* in b_buf */
+    int8_t *b_state;
+    uint8_t *b_valid;
+    int64_t *base;          /* per link: the counter of its first sample */
+    double *floor;
+    uint8_t *clipped;       /* a counter was clipped to int32 */
+    double last_ts;         /* the walk's last rows: last_n rows at last_ts */
+    int64_t last_n;
+    tpud_pool *pool;        /* a worker's pool, while a worker walks */
+    void *given;            /* the memory it asked the pool for */
+    void *dropped;          /* memory it let go, chained for freeing */
 } tpud_reader;
 
-static char *copy_bytes(const void *p, int64_t n) {
-    char *out = malloc(n + 1);
-    if (out) {
-        if (n) memcpy(out, p, n);
-        out[n] = 0;
+struct tpud_pool {
+    struct tpud_job *jobs;
+    int64_t n;
+    int64_t window;         /* jobs opened ahead of the caller, at most */
+    int64_t opened;         /* the jobs the caller opened */
+    int64_t next;           /* the next job a worker walks */
+    int64_t taken;          /* the jobs the caller took */
+    int64_t walking;        /* workers in a walk */
+    int64_t links_hint;     /* the largest block yet: the next one's first size */
+    int64_t t_hint;
+    int8_t *done;
+    int stop;
+    tpud_reader *asks;      /* a worker's reader waiting for memory */
+    int64_t asks_n;
+    int asks_map;           /* pages mapped for it, not calloc's */
+    pthread_mutex_t mu;
+    pthread_cond_t cv;      /* a job opened, walked or taken, memory asked or given, the stop */
+    pthread_t *threads;
+    int64_t n_threads;
+};
+
+static int64_t page_up(int64_t n) {
+    int64_t page = sysconf(_SC_PAGESIZE);
+    return (n + page - 1) / page * page;
+}
+
+/* Zeroed memory of n bytes, 16 at least: calloc's, or pages mapped for it
+ * alone (map); NULL where there is none. */
+static void *zeroed(int64_t n, int map) {
+    n = n < 16 ? 16 : n;
+    if (!map) return calloc(n, 1);
+    void *p = mmap(NULL, n, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+    return p == MAP_FAILED ? NULL : p;
+}
+
+/* Unmaps n bytes of pages that zeroed mapped. */
+void tpud_unmap(void *p, int64_t n) {
+    if (p && n > 0) munmap(p, page_up(n));
+}
+
+/* Zeroed memory for a reader (see zeroed). A worker asks the pool's taking
+ * thread for it and waits. */
+static void *zalloc(tpud_reader *h, int64_t n, int map) {
+    tpud_pool *p = h->pool;
+    if (!p) return zeroed(n, map);
+    pthread_mutex_lock(&p->mu);
+    while (p->asks) pthread_cond_wait(&p->cv, &p->mu);
+    p->asks = h;
+    p->asks_n = n;
+    p->asks_map = map;
+    pthread_cond_broadcast(&p->cv);
+    while (p->asks == h) pthread_cond_wait(&p->cv, &p->mu);
+    pthread_mutex_unlock(&p->mu);
+    return h->given;
+}
+
+/* Lets memory of a reader go (n: the bytes mapped, 0 for calloc's): a
+ * worker chains it for the taking thread in its first 16 bytes. */
+static void release(tpud_reader *h, void *m, int64_t n) {
+    if (!m) return;
+    if (!h->pool) {
+        if (n) tpud_unmap(m, n);
+        else free(m);
+        return;
     }
+    ((void **)m)[0] = h->dropped;
+    ((int64_t *)m)[1] = n;
+    h->dropped = m;
+}
+
+static void free_dropped(tpud_reader *h) {
+    while (h->dropped) {
+        void *m = h->dropped;
+        h->dropped = ((void **)m)[0];
+        int64_t n = ((int64_t *)m)[1];
+        if (n) tpud_unmap(m, n);
+        else free(m);
+    }
+}
+
+/* A copy of n bytes, NUL-terminated. */
+static char *copy_bytes(tpud_reader *h, const void *p, int64_t n) {
+    char *out = zalloc(h, n + 8, 0);
+    if (out && n) memcpy(out, p, n);
     return out;
 }
 
@@ -102,8 +255,8 @@ static char *copy_bytes(const void *p, int64_t n) {
 static int fail(tpud_reader *h, int rc) {
     const char *msg = h->db ? sqlite3_errmsg(h->db) : "out of memory";
     h->errcode = h->db ? sqlite3_extended_errcode(h->db) : rc;
-    free(h->errmsg);
-    h->errmsg = copy_bytes(msg, strlen(msg));
+    release(h, h->errmsg, 0);
+    h->errmsg = copy_bytes(h, msg, strlen(msg));
     return rc & 0xff;
 }
 
@@ -150,7 +303,7 @@ static int read_tombstones(tpud_reader *h, const char *sql) {
         row[0].p = row[1].p = NULL; /* what tpud_close frees, if a copy fails */
         for (int c = 0; c < 2; c++) {
             tpud_value v = column_value(h->stmt, c);
-            if (v.p && !(v.p = copy_bytes(v.p, v.n))) return SQLITE_NOMEM;
+            if (v.p && !(v.p = copy_bytes(h, v.p, v.n))) return SQLITE_NOMEM;
             row[c] = v;
         }
     }
@@ -163,11 +316,15 @@ int tpud_open(const char *uri, const char *tombstone_sql, tpud_reader **out) {
     tpud_reader *h = calloc(1, sizeof *h);
     *out = h;
     if (!h) return SQLITE_NOMEM;
-    /* one thread uses the connection: no mutex on each column read */
+    /* one thread uses the connection at a time: no mutex on each column read */
     int rc = sqlite3_open_v2(uri, &h->db,
                              SQLITE_OPEN_READONLY | SQLITE_OPEN_URI | SQLITE_OPEN_NOMUTEX, NULL);
     if (rc != SQLITE_OK) return fail(h, rc);
     sqlite3_busy_timeout(h->db, BUSY_TIMEOUT_MS);
+    /* memory settings of this handle alone; a DB they fail on fails the
+     * reads after them the same way */
+    sqlite3_db_config(h->db, SQLITE_DBCONFIG_LOOKASIDE, NULL, 0, 0);
+    sqlite3_exec(h->db, WALK_CACHE, NULL, NULL, NULL);
     h->tomb_rc = read_tombstones(h, tombstone_sql);
     return SQLITE_OK;
 }
@@ -178,57 +335,79 @@ static uint64_t hash_bytes(const unsigned char *p, int64_t n) {
     return x;
 }
 
-static int same_name(const tpud_reader *h, int64_t k, const char *p, int64_t n) {
-    int64_t start = k ? h->name_ends[k - 1] : 0;
-    return h->name_ends[k] - start == n && memcmp(h->names + start, p, n) == 0;
-}
-
 static uint64_t name_slot(const char *p, int64_t n, int64_t n_slots) {
     return hash_bytes((const unsigned char *)p, n) & (n_slots - 1);
 }
 
-static int grow_slots(tpud_reader *h) {
-    int64_t n = h->n_slots ? 2 * h->n_slots : 256;
-    int64_t *slots = calloc(n, sizeof *slots);
+static int same_name(const name_table *t, int64_t k, const char *p, int64_t n) {
+    int64_t start = k ? t->ends[k - 1] : 0;
+    return t->ends[k] - start == n && memcmp(t->names + start, p, n) == 0;
+}
+
+/* The table's slots, n of them (a power of 2). */
+static int grow_slots(tpud_reader *h, name_table *t, int64_t n) {
+    int64_t *slots = zalloc(h, n * sizeof *slots, 0);
     if (!slots) return SQLITE_NOMEM;
-    for (int64_t k = 0, start = 0; k < h->n_links; start = h->name_ends[k++]) {
-        uint64_t s = name_slot(h->names + start, h->name_ends[k] - start, n);
+    for (int64_t k = 0, start = 0; k < t->n; start = t->ends[k++]) {
+        uint64_t s = name_slot(t->names + start, t->ends[k] - start, n);
         while (slots[s]) s = (s + 1) & (n - 1);
         slots[s] = k + 1;
     }
-    free(h->slots);
-    h->slots = slots;
-    h->n_slots = n;
+    release(h, t->slots, 0);
+    t->slots = slots;
+    t->n_slots = n;
     return SQLITE_OK;
 }
 
-/* The link's id, numbered in the order first fetched; -1 out of memory. */
-static int64_t link_id(tpud_reader *h, const char *p, int64_t n) {
-    uint64_t s = name_slot(p, n, h->n_slots);
-    for (; h->slots[s]; s = (s + 1) & (h->n_slots - 1)) {
-        if (same_name(h, h->slots[s] - 1, p, n)) return h->slots[s] - 1;
+/* Room in the table for `names` names of `bytes` bytes in all. */
+static int reserve_names(tpud_reader *h, name_table *t, int64_t names, int64_t bytes) {
+    if (names > t->ends_cap) {
+        int64_t *ends = zalloc(h, names * sizeof *ends, 0);
+        if (!ends) return SQLITE_NOMEM;
+        if (t->n) memcpy(ends, t->ends, t->n * sizeof *ends);
+        release(h, t->ends, 0);
+        t->ends = ends;
+        t->ends_cap = names;
     }
-    int64_t id = h->n_links, used = id ? h->name_ends[id - 1] : 0;
-    if (id == h->ends_cap) {
-        int64_t cap = id ? 2 * id : 256;
-        int64_t *ends = realloc(h->name_ends, cap * sizeof *ends);
-        if (!ends) return -1;
-        h->name_ends = ends;
-        h->ends_cap = cap;
+    if (bytes > t->names_cap) {
+        char *buf = zalloc(h, bytes, 0);
+        if (!buf) return SQLITE_NOMEM;
+        if (t->n) memcpy(buf, t->names, t->ends[t->n - 1]);
+        release(h, t->names, 0);
+        t->names = buf;
+        t->names_cap = bytes;
     }
-    if (used + n > h->names_cap) {
-        int64_t cap = 2 * h->names_cap > used + n ? 2 * h->names_cap : used + n + 4096;
-        char *names = realloc(h->names, cap);
-        if (!names) return -1;
-        h->names = names;
-        h->names_cap = cap;
+    int64_t slots = t->n_slots ? t->n_slots : 256;
+    while (slots < 2 * names) slots *= 2;
+    return slots > t->n_slots ? grow_slots(h, t, slots) : SQLITE_OK;
+}
+
+/* The name's id; a name not held is added, numbered next (-1 out of
+ * memory), or with add 0 is -2. */
+static int64_t name_id(tpud_reader *h, name_table *t, const char *p, int64_t n, int add) {
+    if (!t->slots && grow_slots(h, t, 256)) return -1;
+    uint64_t s = name_slot(p, n, t->n_slots);
+    for (; t->slots[s]; s = (s + 1) & (t->n_slots - 1)) {
+        if (same_name(t, t->slots[s] - 1, p, n)) return t->slots[s] - 1;
     }
-    if (n) memcpy(h->names + used, p, n);
-    h->name_ends[id] = used + n;
-    h->n_links++;
-    h->slots[s] = id + 1;
-    if (2 * h->n_links > h->n_slots && grow_slots(h)) return -1;
+    if (!add) return -2;
+    int64_t id = t->n, used = id ? t->ends[id - 1] : 0;
+    if (id == t->ends_cap || used + n > t->names_cap) {
+        /* the slots double with the names: find the new one's again */
+        if (reserve_names(h, t, id ? 2 * id : 256, 2 * (used + n) + 4096)) return -1;
+        return name_id(h, t, p, n, add);
+    }
+    if (n) memcpy(t->names + used, p, n);
+    t->ends[id] = used + n;
+    t->n++;
+    t->slots[s] = id + 1;
     return id;
+}
+
+static void free_names(name_table *t) {
+    free(t->names);
+    free(t->ends);
+    free(t->slots);
 }
 
 static int resize_columns(tpud_reader *h, int64_t cap) {
@@ -245,77 +424,537 @@ static int resize_columns(tpud_reader *h, int64_t cap) {
     return SQLITE_OK;
 }
 
-/* Columns c0.. of the newest row; TPUD_VALUE where the caller converts. */
+/* The block [links_cap, t_cap] laid out anew as [links, t]: zeroed, each
+ * row's samples kept. */
+static int resize_block(tpud_reader *h, int64_t links, int64_t t) {
+    int64_t cells = links * t;
+    char *buf = zalloc(h, cells * 6, 1);
+    if (!buf) return SQLITE_NOMEM;
+    int32_t *ct = (int32_t *)buf;
+    int8_t *st = (int8_t *)(buf + cells * 4);
+    uint8_t *vd = (uint8_t *)(buf + cells * 5);
+    int64_t keep = h->t_cap < t ? h->t_cap : t;
+    int64_t rows = h->links_cap < links ? h->links_cap : links;
+    if (h->links.n < rows) rows = h->links.n;
+    for (int64_t k = 0; k < rows; k++) {
+        memcpy(ct + k * t, h->b_counter + k * h->t_cap, keep * 4);
+        memcpy(st + k * t, h->b_state + k * h->t_cap, keep);
+        memcpy(vd + k * t, h->b_valid + k * h->t_cap, keep);
+    }
+    release(h, h->b_buf, h->b_bytes);
+    h->b_buf = buf;
+    h->b_bytes = cells * 6;
+    h->b_counter = ct;
+    h->b_state = st;
+    h->b_valid = vd;
+    h->links_cap = links;
+    h->t_cap = t;
+    return SQLITE_OK;
+}
+
+/* The per-link state and the block's rows for `cap` links. */
+static int reserve_links(tpud_reader *h, int64_t cap) {
+    void *kept = zalloc(h, cap * sizeof *h->kept, 0), *base = zalloc(h, cap * sizeof *h->base, 0);
+    void *floor = zalloc(h, cap * sizeof *h->floor, 0), *clipped = zalloc(h, cap, 0);
+    if (!kept || !base || !floor || !clipped) return SQLITE_NOMEM;
+    int64_t n = h->links.n < h->links_cap ? h->links.n : h->links_cap;
+    if (n) {
+        memcpy(kept, h->kept, n * sizeof *h->kept);
+        memcpy(base, h->base, n * sizeof *h->base);
+        memcpy(floor, h->floor, n * sizeof *h->floor);
+        memcpy(clipped, h->clipped, n);
+    }
+    release(h, h->kept, 0);
+    release(h, h->base, 0);
+    release(h, h->floor, 0);
+    release(h, h->clipped, 0);
+    h->kept = kept;
+    h->base = base;
+    h->floor = floor;
+    h->clipped = clipped;
+    int64_t t = h->t_cap ? h->t_cap : 64;
+    return resize_block(h, cap, t < h->max_samples ? t : h->max_samples);
+}
+
+/* Room for link k: its row of the block and its per-link state, its floor
+ * looked up once, when it is first seen. */
+static int add_link(tpud_reader *h, int64_t k) {
+    if (k >= h->links_cap && reserve_links(h, 2 * h->links_cap > 256 ? 2 * h->links_cap : 256))
+        return SQLITE_NOMEM;
+    int64_t start = k ? h->links.ends[k - 1] : 0;
+    int64_t f = h->floors.n
+        ? name_id(h, &h->floors, h->links.names + start, h->links.ends[k] - start, 0) : -2;
+    if (f == -1) return SQLITE_NOMEM;
+    h->floor[k] = f >= 0 ? h->floor_of[f] : h->floor0;
+    return SQLITE_OK;
+}
+
+/* The row just read, into its link's row of the block. */
+static int put(tpud_reader *h) {
+    int64_t k = h->r_lid, n = h->kept[k];
+    if (!(h->r_ts >= h->floor[k])) {
+        h->n_tombstoned++;
+        return SQLITE_OK;
+    }
+    /* past max_samples, a link's row is a ring over its latest samples */
+    int64_t at = n < h->max_samples ? n : n % h->max_samples;
+    if (at >= h->t_cap) {
+        int64_t t = 2 * h->t_cap > 64 ? 2 * h->t_cap : 64;
+        if (resize_block(h, h->links_cap, t < h->max_samples ? t : h->max_samples))
+            return SQLITE_NOMEM;
+    }
+    if (n == 0) h->base[k] = h->r_crc;
+    /* as NumPy subtracts int64: wrapping */
+    int64_t d = (int64_t)((uint64_t)h->r_crc - (uint64_t)h->base[k]);
+    if (d < INT32_MIN || d > INT32_MAX) {
+        d = d < INT32_MIN ? INT32_MIN : INT32_MAX;
+        h->clipped[k] = 1;
+    }
+    at += k * h->t_cap;
+    h->b_state[at] = h->r_state;
+    h->b_counter[at] = (int32_t)d;
+    h->b_valid[at] = 1;
+    h->kept[k] = n + 1;
+    return SQLITE_OK;
+}
+
+static void reverse(int8_t *s, int32_t *c, int64_t a, int64_t b) {
+    for (b--; a < b; a++, b--) {
+        int8_t x = s[a];
+        s[a] = s[b];
+        s[b] = x;
+        int32_t y = c[a];
+        c[a] = c[b];
+        c[b] = y;
+    }
+}
+
+/* The block packed to [links.n, t] where it is, its pages past that
+ * unmapped: each array's rows move down, in address order, so none is
+ * overwritten before it moved. */
+static void pack_block(tpud_reader *h, int64_t t) {
+    int64_t links = h->links.n, cells = links * t;
+    int32_t *ct = (int32_t *)h->b_buf;
+    int8_t *st = (int8_t *)(h->b_buf + cells * 4);
+    uint8_t *vd = (uint8_t *)(h->b_buf + cells * 5);
+    for (int64_t k = 0; k < links; k++)
+        memmove(ct + k * t, h->b_counter + k * h->t_cap, t * 4);
+    for (int64_t k = 0; k < links; k++)
+        memmove(st + k * t, h->b_state + k * h->t_cap, t);
+    for (int64_t k = 0; k < links; k++)
+        memmove(vd + k * t, h->b_valid + k * h->t_cap, t);
+    int64_t keep = page_up(cells * 6), mapped = page_up(h->b_bytes);
+    if (mapped > keep) munmap(h->b_buf + keep, mapped - keep);
+    if (!cells) h->b_buf = NULL;
+    h->b_bytes = cells * 6;
+    h->b_counter = (int32_t *)h->b_buf;
+    h->b_state = (int8_t *)(h->b_buf + cells * 4);
+    h->b_valid = (uint8_t *)(h->b_buf + cells * 5);
+    h->links_cap = links;
+    h->t_cap = t;
+}
+
+/* The end of a block's walk: each cut link's ring in ts order and rebased
+ * on its first kept sample, the block packed to its shape. TPUD_REREAD
+ * where a cut link's counter was clipped: its rebased deltas are lost. */
+static int close_block(tpud_reader *h) {
+    int64_t t = 0, m = h->max_samples;
+    for (int64_t k = 0; k < h->links.n; k++) {
+        int64_t n = h->kept[k] < m ? h->kept[k] : m;
+        if (n > t) t = n;
+        if (h->kept[k] > m && h->clipped[k]) return TPUD_REREAD;
+    }
+    for (int64_t k = 0; k < h->links.n; k++) {
+        if (h->kept[k] <= m) continue;
+        int8_t *s = h->b_state + k * h->t_cap;
+        int32_t *c = h->b_counter + k * h->t_cap;
+        int64_t oldest = h->kept[k] % m;
+        reverse(s, c, 0, oldest);
+        reverse(s, c, oldest, m);
+        reverse(s, c, 0, m);
+        /* the stored deltas fit int32: their differences are exact */
+        int64_t c0 = c[0];
+        for (int64_t j = 0; j < m; j++) {
+            int64_t d = (int64_t)c[j] - c0;
+            c[j] = (int32_t)(d < INT32_MIN ? INT32_MIN : d > INT32_MAX ? INT32_MAX : d);
+        }
+    }
+    if (h->b_buf && (h->links_cap != h->links.n || h->t_cap != t)) pack_block(h, t);
+    h->t = t;
+    return SQLITE_DONE;
+}
+
+/* Columns c0.. of the row being read; TPUD_VALUE where the caller converts. */
 static int fill(tpud_reader *h, int c0) {
     sqlite3_stmt *st = h->stmt;
-    int64_t r = h->n_rows - 1, v;
+    int64_t v;
     for (int c = c0; c < 4; c++) {
         int type = sqlite3_column_type(st, c);
         if (c == 0 && type == SQLITE_TEXT) {
             const char *p = (const char *)sqlite3_column_text(st, 0);
-            int64_t id = link_id(h, p, sqlite3_column_bytes(st, 0));
-            if (id < 0) return SQLITE_NOMEM;
-            h->lid[r] = (int32_t)id;
+            int64_t n_links = h->links.n;
+            int64_t id = name_id(h, &h->links, p, sqlite3_column_bytes(st, 0), 1);
+            if (id < 0 || (h->block && id == n_links && add_link(h, id))) return SQLITE_NOMEM;
+            h->r_lid = (int32_t)id;
         } else if (c == 1 && (type == SQLITE_FLOAT || type == SQLITE_INTEGER)) {
-            h->ts[r] = sqlite3_column_double(st, 1);
+            h->r_ts = sqlite3_column_double(st, 1);
         } else if (c == 2 && type == SQLITE_INTEGER
                    && (v = sqlite3_column_int64(st, 2)) >= -128 && v <= 127) {
-            h->state[r] = (int8_t)v;
+            h->r_state = (int8_t)v;
         } else if (c == 3 && type == SQLITE_INTEGER) {
-            h->crc[r] = sqlite3_column_int64(st, 3);
+            h->r_crc = sqlite3_column_int64(st, 3);
         } else {
             h->bad_col = c;
             h->bad = column_value(st, c);
             return TPUD_VALUE;
         }
     }
+    if (h->block) return put(h);
+    int64_t r = h->n_rows - 1;
+    h->lid[r] = h->r_lid;
+    h->ts[r] = h->r_ts;
+    h->state[r] = h->r_state;
+    h->crc[r] = h->r_crc;
     return SQLITE_OK;
 }
 
-static int walk(tpud_reader *h) {
-    for (;;) {
-        int rc = sqlite3_step(h->stmt);
-        if (rc == SQLITE_DONE) {
-            finish(h);
-            return SQLITE_DONE;
-        }
-        if (rc != SQLITE_ROW) return fail(h, rc);
-        if (h->n_rows == h->cap && resize_columns(h, 2 * h->cap)) return SQLITE_NOMEM;
-        h->n_rows++;
-        if ((rc = fill(h, 0))) return rc;
-    }
+/* One row of the walk: SQLITE_OK where one was read, SQLITE_DONE at the
+ * end (the DB still open), else where the walk stops. */
+static int step(tpud_reader *h) {
+    int rc = sqlite3_step(h->stmt);
+    if (rc == SQLITE_DONE) return rc;
+    if (rc != SQLITE_ROW) return fail(h, rc);
+    if (!h->block && h->n_rows == h->cap && resize_columns(h, 2 * h->cap))
+        return SQLITE_NOMEM;
+    h->n_rows++;
+    return fill(h, 0);
 }
 
-int tpud_window(tpud_reader *h, const char *sql, double start, int64_t rows0) {
+static int walk(tpud_reader *h) {
+    int rc;
+    while ((rc = step(h)) == SQLITE_OK) {
+    }
+    return rc;
+}
+
+/* A walk's code once it ended: the DB closed, a block closed too. */
+static int end_walk(tpud_reader *h, int rc) {
+    free_dropped(h);
+    if (rc != SQLITE_DONE) return rc;
+    finish(h);
+    return h->block ? close_block(h) : rc;
+}
+
+static int start_walk(tpud_reader *h, const char *sql, double start) {
     int rc = sqlite3_prepare_v2(h->db, sql, -1, &h->stmt, NULL);
     if (rc != SQLITE_OK) return fail(h, rc);
     if ((rc = sqlite3_bind_double(h->stmt, 1, start)) != SQLITE_OK) return fail(h, rc);
-    if (resize_columns(h, rows0) || grow_slots(h)) return SQLITE_NOMEM;
-    return walk(h);
+    return SQLITE_OK;
+}
+
+int tpud_window(tpud_reader *h, const char *sql, double start, int64_t rows0) {
+    int rc = start_walk(h, sql, start);
+    if (rc) return rc;
+    if (resize_columns(h, rows0)) return SQLITE_NOMEM;
+    return end_walk(h, walk(h));
+}
+
+/* A block's walk prepared, its tables and block first sized for `links`
+ * links of `t` samples. */
+static int start_block(tpud_reader *h, const char *sql, double start, int64_t max_samples,
+                       int64_t links, int64_t t) {
+    int rc = start_walk(h, sql, start);
+    if (rc) return rc;
+    h->block = 1;
+    h->max_samples = max_samples;
+    h->t_cap = t < max_samples ? t : max_samples;
+    if (reserve_names(h, &h->links, links, 32 * links) || reserve_links(h, links))
+        return SQLITE_NOMEM;
+    return SQLITE_OK;
 }
 
 /* Stores the caller's conversion of the value that stopped the walk (f for
  * ts, i for state and CRC) and walks on. */
 int tpud_resume(tpud_reader *h, double f, int64_t i) {
-    int64_t r = h->n_rows - 1;
-    if (h->bad_col == 1) h->ts[r] = f;
-    else if (h->bad_col == 2) h->state[r] = (int8_t)i;
-    else h->crc[r] = i;
+    if (h->bad_col == 1) h->r_ts = f;
+    else if (h->bad_col == 2) h->r_state = (int8_t)i;
+    else h->r_crc = i;
     int rc = fill(h, (int)h->bad_col + 1);
-    return rc ? rc : walk(h);
+    return end_walk(h, rc ? rc : walk(h));
 }
 
 void tpud_close(tpud_reader *h) {
     if (!h) return;
     finish(h);
+    free_dropped(h);
     free(h->errmsg);
     free_values(h->tombstones, 2 * h->n_tombstones);
-    free(h->names);
-    free(h->name_ends);
+    free_names(&h->links);
+    free_names(&h->floors);
     free(h->lid);
     free(h->ts);
     free(h->state);
     free(h->crc);
-    free(h->slots);
+    tpud_unmap(h->b_buf, h->b_bytes);
+    free(h->kept);
+    free(h->base);
+    free(h->floor);
+    free(h->clipped);
+    free(h->floor_of);
     free(h);
+}
+
+/* The floors from the tombstone rows, as the loader computes them from a
+ * dict of the rows: a link's floor is the larger of the "*" row's ts and its
+ * own row's (the last row where a name repeats); a link without a row takes
+ * the larger of the "*" row's and 0. A read that failed with SQLITE_ERROR
+ * (Python's OperationalError, taken as no tombstones) leaves no floor.
+ * Returns 0 where the rows hold what only the caller can judge: a name that
+ * is not ASCII (its UTF-8 decode may fail) or a TEXT name whose ts is no
+ * number; -1 out of memory. */
+static int own_floors(tpud_reader *h) {
+    int64_t n = h->tomb_rc ? 0 : h->n_tombstones;
+    double g = 0.0;
+    for (int64_t k = 0; k < n; k++) {
+        const tpud_value *name = &h->tombstones[2 * k], *ts = &name[1];
+        if (name->type != SQLITE_TEXT) continue; /* matches no TEXT name */
+        for (int64_t b = 0; b < name->n; b++) {
+            if ((unsigned char)name->p[b] >= 0x80) return 0;
+        }
+        if (ts->type != SQLITE_INTEGER && ts->type != SQLITE_FLOAT) return 0;
+        if (name->n == 1 && name->p[0] == '*') g = ts->type == SQLITE_INTEGER ? ts->i : ts->f;
+    }
+    h->floor0 = 0.0 > g ? 0.0 : g;
+    if (n && !(h->floor_of = malloc(n * sizeof *h->floor_of))) return -1;
+    for (int64_t k = 0; k < n; k++) {
+        const tpud_value *name = &h->tombstones[2 * k], *ts = &name[1];
+        if (name->type != SQLITE_TEXT) continue;
+        int64_t id = name_id(h, &h->floors, name->p, name->n, 1);
+        if (id < 0) return -1;
+        double v = ts->type == SQLITE_INTEGER ? ts->i : ts->f;
+        h->floor_of[id] = v > g ? v : g;
+    }
+    return 1;
+}
+
+static double clock_s(clockid_t c) {
+    struct timespec t;
+    clock_gettime(c, &t);
+    return t.tv_sec + t.tv_nsec * 1e-9;
+}
+
+/* One DB's read, as the loader asks for it. */
+typedef struct tpud_job {
+    /* the caller's */
+    const char *uri;
+    const char *tombstone_sql;
+    const char *sql;
+    const char *last_sql;   /* the largest ts and its rows' count */
+    double start;
+    int64_t max_samples;    /* at least 1 */
+    int64_t as_block;       /* into the block, else into columns */
+    int64_t rows0;          /* the columns' first rows */
+    /* the read's */
+    tpud_reader *h;
+    int64_t opened;         /* else rc is the open's failure */
+    int64_t rc;             /* the open's or the walk's code; TPUD_FLOORS */
+    double open_s;          /* the open, its tombstones and their floors */
+    double fetch_s;         /* the walk */
+    double cpu_s;           /* the read's thread CPU */
+    double wait_s;          /* the taking thread's wait for a worker's walk */
+} tpud_job;
+
+/* The walk's last rows, where the DB tells them: the rows at its largest ts
+ * end the walk, in rowid order. */
+static void last_rows(tpud_reader *h, const char *sql) {
+    sqlite3_stmt *q;
+    if (sqlite3_prepare_v2(h->db, sql, -1, &q, NULL) != SQLITE_OK) return;
+    int type = sqlite3_step(q) == SQLITE_ROW ? sqlite3_column_type(q, 0) : SQLITE_NULL;
+    if (type == SQLITE_FLOAT || type == SQLITE_INTEGER) {
+        h->last_ts = sqlite3_column_double(q, 0);
+        h->last_n = sqlite3_column_int64(q, 1);
+    }
+    sqlite3_finalize(q);
+}
+
+/* Opens job i's DB and readies its walk, on the taking thread; the job's rc
+ * is SQLITE_OK where a walk is to follow. A block is first sized as the
+ * largest before it, where there was one. */
+static void open_job(tpud_pool *p, int64_t i) {
+    tpud_job *j = &p->jobs[i];
+    double w0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
+    int rc = tpud_open(j->uri, j->tombstone_sql, &j->h);
+    j->opened = rc == SQLITE_OK;
+    if (rc == SQLITE_OK && j->h->tomb_rc && j->h->tomb_rc != SQLITE_ERROR) rc = TPUD_FLOORS;
+    if (rc == SQLITE_OK && j->as_block) {
+        int own = own_floors(j->h);
+        rc = own < 0 ? SQLITE_NOMEM : own ? SQLITE_OK : TPUD_FLOORS;
+    }
+    if (rc == SQLITE_OK) {
+        pthread_mutex_lock(&p->mu);
+        int64_t links = p->links_hint ? p->links_hint : 256, t = p->t_hint ? p->t_hint : 64;
+        pthread_mutex_unlock(&p->mu);
+        rc = j->as_block ? start_block(j->h, j->sql, j->start, j->max_samples, links, t)
+                         : start_walk(j->h, j->sql, j->start);
+        if (rc == SQLITE_OK && !j->as_block && resize_columns(j->h, j->rows0)) rc = SQLITE_NOMEM;
+        /* the first row here: SQLite allocates the walk's cursors in it */
+        if (rc == SQLITE_OK) rc = step(j->h);
+        if (rc == SQLITE_OK) last_rows(j->h, j->last_sql);
+    }
+    j->rc = rc;
+    j->open_s = clock_s(CLOCK_MONOTONIC) - w0;
+    j->cpu_s = clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
+}
+
+/* Walks job i, where its open readied a walk. A worker stops at the walk's
+ * last row: the step after it, in which SQLite frees the walk's cursors, is
+ * the taking thread's (tpud_pool_take). */
+static void walk_job(tpud_pool *p, int64_t i, int worker) {
+    tpud_job *j = &p->jobs[i];
+    if (j->rc != SQLITE_OK) return;
+    tpud_reader *h = j->h;
+    double w0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
+    h->pool = worker ? p : NULL;
+    int rc;
+    for (int64_t last = 0; (rc = step(h)) == SQLITE_OK;) {
+        if (worker && h->r_ts == h->last_ts && ++last == h->last_n) break;
+    }
+    j->rc = rc;
+    h->pool = NULL;
+    j->fetch_s = clock_s(CLOCK_MONOTONIC) - w0;
+    j->cpu_s += clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
+}
+
+static void *work(void *arg) {
+    tpud_pool *p = arg;
+    pthread_mutex_lock(&p->mu);
+    for (;;) {
+        while (!p->stop && p->next >= p->opened) pthread_cond_wait(&p->cv, &p->mu);
+        if (p->stop) break;
+        int64_t i = p->next++;
+        p->walking++;
+        pthread_mutex_unlock(&p->mu);
+        walk_job(p, i, 1);
+        pthread_mutex_lock(&p->mu);
+        p->walking--;
+        p->done[i] = 1;
+        pthread_cond_broadcast(&p->cv);
+    }
+    pthread_mutex_unlock(&p->mu);
+    return NULL;
+}
+
+/* Gives the memory a worker asked for; the pool's lock is held. */
+static void give(tpud_pool *p) {
+    tpud_reader *h = p->asks;
+    pthread_mutex_unlock(&p->mu);
+    h->given = zeroed(p->asks_n, p->asks_map);
+    pthread_mutex_lock(&p->mu);
+    p->asks = NULL;
+    pthread_cond_broadcast(&p->cv);
+}
+
+static void free_pool(tpud_pool *p) {
+    pthread_mutex_destroy(&p->mu);
+    pthread_cond_destroy(&p->cv);
+    free(p->done);
+    free(p->threads);
+    free(p);
+}
+
+/* A pool over jobs[0..n): with `workers` of 2 or more, as many threads of
+ * stack_bytes stacks (larger where that is refused) walk the jobs that
+ * tpud_pool_take opened, at most `workers` ahead of it; else the taking
+ * thread walks each job too. NULL out of memory. */
+tpud_pool *tpud_pool_start(tpud_job *jobs, int64_t n, int64_t workers, int64_t stack_bytes) {
+    tpud_pool *p = calloc(1, sizeof *p);
+    if (!p) return NULL;
+    p->jobs = jobs;
+    p->n = n;
+    p->done = calloc(n ? n : 1, 1);
+    p->threads = calloc(workers > 1 ? workers : 1, sizeof *p->threads);
+    pthread_mutex_init(&p->mu, NULL);
+    pthread_cond_init(&p->cv, NULL);
+    if (!p->done || !p->threads) {
+        free_pool(p);
+        return NULL;
+    }
+    pthread_attr_t a;
+    pthread_attr_init(&a);
+    for (int64_t k = 0; workers > 1 && k < workers; k++) {
+        /* a stack also holds the thread's static TLS: a size too small for
+         * it is refused, and a larger one tried */
+        int rc = EINVAL;
+        for (int64_t size = stack_bytes; rc == EINVAL && size <= 64 * stack_bytes; size *= 4) {
+            if (pthread_attr_setstacksize(&a, size) == 0)
+                rc = pthread_create(&p->threads[k], &a, work, p);
+        }
+        if (rc) break; /* fewer threads, or none: the taking thread walks */
+        pthread_setname_np(p->threads[k], "fleet_scan-read");
+        p->n_threads++;
+    }
+    pthread_attr_destroy(&a);
+    p->window = p->n_threads ? workers : 1;
+    return p;
+}
+
+int64_t tpud_pool_threads(tpud_pool *p) {
+    return p->n_threads;
+}
+
+/* Job i, the one after the last taken, once read; the jobs up to a window
+ * ahead of it are opened first. Its handle is the caller's from here. */
+void tpud_pool_take(tpud_pool *p, int64_t i) {
+    while (p->opened < p->n && p->opened < i + p->window) {
+        open_job(p, p->opened);
+        pthread_mutex_lock(&p->mu);
+        p->opened++;
+        pthread_cond_broadcast(&p->cv);
+        pthread_mutex_unlock(&p->mu);
+    }
+    tpud_job *j = &p->jobs[i];
+    if (!p->n_threads) {
+        walk_job(p, i, 0);
+        p->done[i] = 1;
+    }
+    double w0 = clock_s(CLOCK_MONOTONIC);
+    pthread_mutex_lock(&p->mu);
+    while (!p->done[i]) {
+        if (p->asks) give(p);
+        else pthread_cond_wait(&p->cv, &p->mu);
+    }
+    p->taken = i + 1;
+    pthread_mutex_unlock(&p->mu);
+    j->wait_s = p->n_threads ? clock_s(CLOCK_MONOTONIC) - w0 : 0.0;
+    if (j->opened) {
+        double e0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
+        j->rc = end_walk(j->h, j->rc == SQLITE_OK ? walk(j->h) : (int)j->rc);
+        j->fetch_s += clock_s(CLOCK_MONOTONIC) - e0;
+        j->cpu_s += clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
+        if (j->rc == SQLITE_DONE && j->as_block) {
+            pthread_mutex_lock(&p->mu);
+            if (j->h->links.n > p->links_hint) p->links_hint = j->h->links.n;
+            if (j->h->t > p->t_hint) p->t_hint = j->h->t;
+            pthread_mutex_unlock(&p->mu);
+        }
+    }
+}
+
+/* Walks no more jobs, waits for the walks running (giving the memory they
+ * ask for), and closes the handles of the jobs not taken. */
+void tpud_pool_stop(tpud_pool *p) {
+    pthread_mutex_lock(&p->mu);
+    p->stop = 1;
+    pthread_cond_broadcast(&p->cv);
+    while (p->walking || p->asks) {
+        if (p->asks) give(p);
+        else pthread_cond_wait(&p->cv, &p->mu);
+    }
+    pthread_mutex_unlock(&p->mu);
+    for (int64_t k = 0; k < p->n_threads; k++) pthread_join(p->threads[k], NULL);
+    for (int64_t i = p->taken; i < p->n; i++) {
+        tpud_close(p->jobs[i].h);
+        p->jobs[i].h = NULL;
+    }
+    free_pool(p);
 }

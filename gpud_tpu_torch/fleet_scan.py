@@ -24,7 +24,9 @@ component ``"fleet_scan"``), one per layer and none per DB or row:
     fleet_scan.sweep                 dbs, links, devices, cpu_s
       fleet_scan.load                dbs, rows_fetched, rows_tombstoned,
                                      rows_kept, open_s, fetch_s,
-                                     slowest_db, slowest_db_s
+                                     slowest_db, slowest_db_s, workers,
+                                     dbs_block, dbs_columns, wait_s,
+                                     read_cpu_s
         fleet_scan.pack              links, t_max, truncated
       fleet_scan.split               devices, h2d_bytes
         fleet_scan.h2d               bytes        } once per device
@@ -44,6 +46,7 @@ import logging
 import os
 import sqlite3
 import time
+from collections import Counter
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 from urllib.parse import quote
@@ -55,7 +58,7 @@ from gpud_tpu_torch import tracing
 from gpud_tpu_torch.device import DeviceLike, resolve_device
 from gpud_tpu_torch.ops.packed_scan import packed_from_numpy, scan_links_packed
 from gpud_tpu_torch.ops.window_scan import classify_links
-from gpud_tpu_torch.snapshot_reader import SnapshotDB
+from gpud_tpu_torch.snapshot_reader import FLOORS, Block, Read, Reads, SnapshotDB
 
 logger = logging.getLogger(__name__)
 
@@ -74,9 +77,12 @@ COMPONENT = "fleet_scan"  # the spans' component in the trace ring
 # one query a DB: it walks only the window's entries of the (ts) index, in a
 # total order (ties by rowid, as the (link, ts) index orders them), so each
 # link's rows come in ts order whatever depth the DB stores. The native
-# reader (snapshot_reader.py) steps its rows straight into columns
+# reader (snapshot_reader.py) steps its rows straight into the host's block
 QUERY = (f"SELECT link, ts, state, crc_errors FROM {TABLE} "
          "WHERE ts>=? ORDER BY ts, rowid")
+TOMBSTONE_QUERY = f"SELECT link, ts FROM {TOMBSTONE_TABLE}"
+# the window's last rows, which end QUERY's walk: the largest ts and its rows
+LAST_QUERY = f"SELECT ts, count(*) FROM {TABLE} WHERE ts=(SELECT max(ts) FROM {TABLE})"
 
 
 @contextmanager
@@ -130,6 +136,100 @@ def _host_block(lid: np.ndarray, state: np.ndarray, crc: np.ndarray, n_ids: int,
     return ids, states, counters, valid, ids[counts > n]
 
 
+class _FleetArrays:
+    """The fleet's [L, T] int8 / int32 / bool arrays, each host's block
+    copied in as its DB is taken, so the blocks are never all held beside
+    the fleet's arrays. Rows are added as hosts bring them, sized for the
+    rows a host brought so far times the hosts, at least doubling; a wider
+    block widens the arrays. Either copies the rows so far."""
+
+    DTYPES = (np.int8, np.int32, bool)
+
+    def __init__(self, n_hosts: int):
+        self.n_hosts = n_hosts
+        self.arrays = None
+        self.rows = self.t = self.filled = self.placed = 0
+
+    def place(self, rows: np.ndarray, blocks, n_rows: int) -> None:
+        """Copy a host's blocks in at fleet rows ``rows``; the fleet has
+        ``n_rows`` rows so far."""
+        t = blocks[0].shape[1]
+        self.placed += 1
+        if not len(rows):
+            return
+        if n_rows > self.rows or t > self.t:
+            cap = self.rows
+            if n_rows > cap:
+                cap = max(2 * cap, -(-n_rows * self.n_hosts // self.placed))
+            self._resize(cap, max(t, self.t))
+        for out, block in zip(self.arrays, blocks):
+            out[rows, :t] = block
+        self.filled = n_rows
+
+    def _resize(self, rows: int, t: int) -> None:
+        arrays = tuple(np.zeros((rows, t), dtype) for dtype in self.DTYPES)
+        for new, old in zip(arrays, self.arrays or ()):
+            new[:self.filled, :self.t] = old[:self.filled]
+        self.arrays, self.rows, self.t = arrays, rows, t
+
+    def result(self, n_rows: int):
+        """The arrays, [n_rows, T]: T the widest block's, at least 1."""
+        if self.t == 0:
+            return tuple(np.zeros((n_rows, 1), dtype) for dtype in self.DTYPES)
+        return tuple(a[:n_rows] for a in self.arrays)
+
+
+def _finish(read: Read, uri: str, start: float, max_samples: int, as_block: bool):
+    """The part of one DB's read that only Python does, on the sweeping
+    thread: a value to convert; the columns of a DB whose tombstones only
+    Python judges, or whose block the native side cannot make exactly; a
+    failure raises here, in DB order. Returns the DB's Block, or its
+    (tombstones, link names, columns); and the seconds this took in the
+    open's part (the tombstones) and in the walk's."""
+    t0 = time.perf_counter()
+    with read.db as db:
+        tombstones = {}
+        if read.rc == FLOORS or not as_block:
+            try:
+                tombstones = db.tombstones()
+            except sqlite3.OperationalError:
+                pass  # older DB without the table
+        t1 = time.perf_counter()
+        got = db.window(QUERY, start) if read.rc == FLOORS else db.finish(read.rc)
+    if got is None:  # a cut link's counter left int32 first: its columns
+        with SnapshotDB(uri, TOMBSTONE_QUERY) as db:
+            try:
+                tombstones = db.tombstones()
+            except sqlite3.OperationalError:
+                pass
+            got = db.window(QUERY, start)
+    if not isinstance(got, Block):
+        got = (tombstones, *got)
+    return got, t1 - t0, time.perf_counter() - t1
+
+
+def _number_rows(row_of: Dict[str, int], host: str, links: List[str], ids) -> None:
+    """Fleet rows for a DB's links with kept samples (``ids`` into
+    ``links``), in name order, as ORDER BY link gave them: SQLite's BINARY
+    collation of UTF-8 is code-point order. A row once taken is kept."""
+    for k in sorted(ids, key=links.__getitem__):
+        row_of.setdefault(f"{host}/{links[k]}", len(row_of))
+
+
+def _place_block(row_of: Dict[str, int], host: str, block, max_samples: int):
+    """A host's block (one DB's) as the fleet's arrays take it: the fleet
+    rows of its links with kept samples, their rows of the block, and the
+    fleet rows of the links cut to ``max_samples``."""
+    ids = np.flatnonzero(block.kept)
+    _number_rows(row_of, host, block.names, ids.tolist())
+    arrays = (block.states, block.counters, block.valid)
+    if len(ids) < len(block.names):  # a link whose samples a floor all dropped
+        arrays = tuple(a[ids] for a in arrays)
+    rows = np.array([row_of[f"{host}/{block.names[k]}"] for k in ids], np.intp)
+    cut = [row_of[f"{host}/{block.names[k]}"] for k in np.flatnonzero(block.kept > max_samples)]
+    return rows, arrays, cut
+
+
 def load_fleet_history(
     db_paths: List[str],
     window_seconds: float = DEFAULT_WINDOW_SECONDS,
@@ -145,14 +245,23 @@ def load_fleet_history(
     ``max_samples`` keeps its LATEST samples and is reported in
     ``truncated``, never silently.
 
-    Each DB is read into columns by the native reader (snapshot_reader.py)
-    and packed into a block of its own links with array operations; the
-    blocks are copied into the fleet's arrays at the end. Recorded as the
-    ``fleet_scan.load`` span: rows fetched from SQLite, dropped by
-    set-healthy tombstones and kept; seconds in the opens (open and
-    tombstone read) and in the reader's window walk, summed over the DBs;
-    and the DB that took longest, from its open to the end of its array
-    work.
+    The DBs are read side by side by the native reader
+    (snapshot_reader.py), one a worker thread, as many workers as this
+    process may use cores (none for one DB: it is read inline), and taken
+    in DB order, so the output and the first failure are those of a read
+    one DB at a time. A worker walks a DB's window straight into the host's
+    block. A host spread over several DBs, or a DB whose block the reader
+    cannot make exactly, is read into columns instead and packed here with
+    array operations. Each block is copied into the fleet's arrays as its
+    DB is taken, and let go.
+
+    Recorded as the ``fleet_scan.load`` span: rows fetched from SQLite,
+    dropped by set-healthy tombstones and kept; seconds in the opens (open
+    and tombstone read) and in the reader's window walk, summed over the
+    DBs, which overlap; the DB that took longest, from its open to the end
+    of its array work; the workers (0 inline), the DBs read into blocks and
+    into columns, the seconds this thread waited on the workers and the
+    reads' thread CPU seconds, summed.
     """
     t_now = now if now is not None else time.time()
     start = t_now - window_seconds
@@ -168,69 +277,76 @@ def load_fleet_history(
     # a DB whose own stem is another's disambiguated name shares its host:
     # its rows join that host's links, after the earlier DB's
     last_db = {host: i for i, host in enumerate(hosts)}
+    n_dbs = Counter(hosts)
+    # read-only URIs; a path is escaped because '?', '#' or '%' would
+    # otherwise be parsed as URI syntax
+    uris = [f"file:{quote(os.path.abspath(path))}?mode=ro" for path in db_paths]
+    # a host of one DB is read straight into its block
+    as_block = [n_dbs[host] == 1 and max_samples >= 1 for host in hosts]
+    workers = min(len(os.sched_getaffinity(0)), len(db_paths))
 
     row_of: Dict[str, int] = {}  # name → fleet row, in the order first kept
     pending: Dict[str, tuple] = {}  # host → (link ids, kept rows so far)
-    blocks = []
+    fleet = _FleetArrays(len(last_db))
     cut_rows: List[int] = []
-    fetched = tombstoned = 0
-    open_s = fetch_s = slowest_s = 0.0
+    fetched = tombstoned = n_block = 0
+    open_s = fetch_s = read_cpu_s = wait_s = slowest_s = 0.0
     slowest = ""
     with _span("fleet_scan.load") as sp:
-        for i, (path, host) in enumerate(zip(db_paths, hosts)):
-            ids, kept = pending.pop(host, None) or (_LinkIds(), [])
-            # read-only URI; the path is escaped because '?', '#' or '%' would
-            # otherwise be parsed as URI syntax
-            uri = f"file:{quote(os.path.abspath(path))}?mode=ro"
-            t_open = time.perf_counter()
-            with SnapshotDB(uri, f"SELECT link, ts FROM {TOMBSTONE_TABLE}") as db:
-                tombstones = {}
-                try:
-                    tombstones = db.tombstones()
-                except sqlite3.OperationalError:
-                    pass  # older DB without the table
-                global_ts = tombstones.get("*", 0.0)
-                open_s += time.perf_counter() - t_open
-                t_fetch = time.perf_counter()
-                db_links, (lid, ts, state, crc) = db.window(QUERY, start)
-                fetch_s += time.perf_counter() - t_fetch
-            # the DB numbers its links from 0: renumber them among the host's
-            lid = np.array([ids[link] for link in db_links], np.int32)[lid]
-            fetched += len(lid)
-            # honour set-healthy exactly like ICIStore.scan
-            links = list(ids)
-            floor = np.array([max(global_ts, tombstones.get(link, 0.0)) for link in links])
-            keep = ts >= floor[lid]
-            lid, state, crc = lid[keep], state[keep], crc[keep]
-            tombstoned += len(keep) - len(lid)
-            kept.append((lid, state, crc))
-            # the DB's links with rows take fleet rows in name order, as ORDER BY
-            # link gave them: SQLite's BINARY collation of UTF-8 is code-point
-            # order
-            for k in sorted(np.flatnonzero(np.bincount(lid, minlength=len(links))),
-                            key=links.__getitem__):
-                row_of.setdefault(f"{host}/{links[k]}", len(row_of))
-            if last_db[host] == i:
-                b_ids, *arrays, cut = _host_block(
-                    *(np.concatenate(col) for col in zip(*kept)), len(links), max_samples)
-                blocks.append((np.array([row_of[f"{host}/{links[k]}"] for k in b_ids], np.intp),
-                               *arrays))
-                cut_rows += [row_of[f"{host}/{links[k]}"] for k in cut]
-            else:
-                pending[host] = (ids, kept)
-            db_s = time.perf_counter() - t_open
-            if db_s > slowest_s:
-                slowest, slowest_s = host, db_s
+        with Reads(uris, as_block, TOMBSTONE_QUERY, QUERY, LAST_QUERY, start, max_samples,
+                   workers) as reads:
+            for i, host in enumerate(hosts):
+                read = reads.take(i)
+                wait_s += read.wait_s
+                t_rest, cpu_rest = time.perf_counter(), time.thread_time()
+                got, open_rest, fetch_rest = _finish(read, uris[i], start, max_samples,
+                                                     as_block[i])
+                open_s += read.open_s + open_rest
+                fetch_s += read.fetch_s + fetch_rest
+                read_cpu_s += read.cpu_s + time.thread_time() - cpu_rest
+                if isinstance(got, Block):
+                    n_block += 1
+                    fetched += got.fetched
+                    tombstoned += got.tombstoned
+                    b_rows, arrays, cut = _place_block(row_of, host, got, max_samples)
+                    fleet.place(b_rows, arrays, len(row_of))
+                    cut_rows += cut
+                    del got, arrays  # the block's pages go back now
+                else:
+                    ids, kept = pending.pop(host, None) or (_LinkIds(), [])
+                    tombstones, db_links, (lid, ts, state, crc) = got
+                    global_ts = tombstones.get("*", 0.0)
+                    # the DB numbers its links from 0: renumber them among the host's
+                    lid = np.array([ids[link] for link in db_links], np.int32)[lid]
+                    fetched += len(lid)
+                    # honour set-healthy exactly like ICIStore.scan
+                    links = list(ids)
+                    floor = np.array([max(global_ts, tombstones.get(link, 0.0))
+                                      for link in links])
+                    keep = ts >= floor[lid]
+                    lid, state, crc = lid[keep], state[keep], crc[keep]
+                    tombstoned += len(keep) - len(lid)
+                    kept.append((lid, state, crc))
+                    _number_rows(row_of, host, links,
+                                 np.flatnonzero(np.bincount(lid, minlength=len(links))).tolist())
+                    if last_db[host] == i:
+                        b_ids, *arrays, cut = _host_block(
+                            *(np.concatenate(col) for col in zip(*kept)), len(links),
+                            max_samples)
+                        fleet.place(np.array([row_of[f"{host}/{links[k]}"] for k in b_ids],
+                                             np.intp), arrays, len(row_of))
+                        cut_rows += [row_of[f"{host}/{links[k]}"] for k in cut]
+                    else:
+                        pending[host] = (ids, kept)
+                db_s = read.open_s + read.fetch_s + time.perf_counter() - t_rest
+                if db_s > slowest_s:
+                    slowest, slowest_s = host, db_s
+            n_workers = reads.workers
 
         with _span("fleet_scan.pack") as pk:
             names = list(row_of)
-            t_max = max([b[1].shape[1] for b in blocks] + [1])
-            states = np.zeros((len(names), t_max), dtype=np.int8)
-            counters = np.zeros((len(names), t_max), dtype=np.int32)
-            valid = np.zeros((len(names), t_max), dtype=bool)
-            for b_rows, *arrays in blocks:
-                for out, block in zip((states, counters, valid), arrays):
-                    out[b_rows, :block.shape[1]] = block
+            states, counters, valid = fleet.result(len(names))
+            t_max = states.shape[1]
             truncated = [names[r] for r in sorted(cut_rows)]
             if truncated:
                 logger.warning(
@@ -245,7 +361,10 @@ def load_fleet_history(
                            ("rows_tombstoned", tombstoned),
                            ("rows_kept", fetched - tombstoned), ("open_s", open_s),
                            ("fetch_s", fetch_s), ("slowest_db", slowest),
-                           ("slowest_db_s", slowest_s)):
+                           ("slowest_db_s", slowest_s),
+                           ("workers", n_workers),
+                           ("dbs_block", n_block), ("dbs_columns", len(db_paths) - n_block),
+                           ("wait_s", wait_s), ("read_cpu_s", read_cpu_s)):
             sp.set_attr(key, value)
     return names, states, counters, valid, truncated
 

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, spills and shared memory, to stderr
 )
-CC_FLAGS = ("-std=c11", "-O2", "-Wall", "-shared", "-fPIC")
+CC_FLAGS = ("-std=c11", "-O2", "-Wall", "-shared", "-fPIC", "-pthread")
 
 # C entry points and their ctypes signatures: pointers and the stream as
 # c_void_p, sizes as c_int64; each returns a cudaError_t

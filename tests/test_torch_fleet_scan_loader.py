@@ -8,10 +8,13 @@ reads and raises what it raised."""
 
 import json
 import os
+import shutil
 import sqlite3
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 import tracemalloc
 from pathlib import Path
 from urllib.parse import quote
@@ -24,6 +27,7 @@ from gpud_tpu_torch import snapshot_reader
 from gpud_tpu_torch.components.gpu.nvlink_store import NVLinkStore
 from gpud_tpu_torch.ops import _build
 from gpud_tpu_torch.sqlite import DB
+from gpud_tpu_torch.tracing import DEFAULT_TRACER
 
 NOW = 1_700_000_000.0
 TABLE = torch_fs.TABLE
@@ -375,3 +379,267 @@ def test_the_reader_s_name_changes_with_its_source_and_flags(tmp_path, monkeypat
     src.write_text(src.read_text() + "\n/* changed */\n")
     assert _build.host_library_path(("/lib/libsqlite3.so.0",)) != name
     assert _build.library_path().name.startswith("libgpud_tpu_torch_")  # the kernels' apart
+
+
+# The loader reads the DBs on worker threads, as many as the cores it may
+# use (os.sched_getaffinity), and consumes them in DB order: W is forced
+# here through that call alone
+W = 4
+DATA_MAKERS = [_seeded, _window_edge, _values_to_convert, _link_before_the_window,
+               _empty, _no_tombstone_table, _wide_names]
+
+
+def _cores(monkeypatch, n):
+    monkeypatch.setattr(os, "sched_getaffinity", lambda _pid: set(range(n)))
+
+
+@pytest.fixture(scope="module")
+def templates(tmp_path_factory):
+    """One DB file a maker, written once and copied into each DB set."""
+    out = {}
+    for make in DATA_MAKERS:
+        d = tmp_path_factory.mktemp(make.__name__)
+        out[make.__name__] = make(d)
+    return out
+
+
+def _distinct(i):
+    return f"host{i}"
+
+
+def _duplicate_stems(i):
+    # every DB named h.db in its own directory: hosts h, h-2, h-3, ...
+    return "h"
+
+
+def _two_db_host(i):
+    # an odd DB takes the name that the next h.db is given: the two share a
+    # host, read into columns, the odd one's links first
+    return "h" if i % 2 == 0 else f"h-{i // 2 + 2}"
+
+
+def _db_set(tmp_path, templates, first, n, stem=_distinct):
+    """``n`` DBs, each in a directory of its own, their data cycling over
+    the makers from ``first``."""
+    names = [m.__name__ for m in DATA_MAKERS]
+    k0 = names.index(first)
+    paths = []
+    for i in range(n):
+        d = tmp_path / f"d{i}"
+        d.mkdir()
+        paths.append(str(d / f"{stem(i)}.db"))
+        shutil.copy(templates[names[(k0 + i) % len(names)]], paths[-1])
+    return paths
+
+
+def _load(paths, monkeypatch, cores, window=3600, **kw):
+    _cores(monkeypatch, cores)
+    DEFAULT_TRACER.clear()
+    out = torch_fs.load_fleet_history(paths, window_seconds=window, now=NOW, **kw)
+    load = next(s for s in DEFAULT_TRACER.snapshot(component=torch_fs.COMPONENT)
+                if s["name"] == "fleet_scan.load")
+    return out, load["attrs"]
+
+
+def _assert_same_load(got, want):
+    assert got[0] == want[0] and got[4] == want[4]
+    for g, w in zip(got[1:4], want[1:4]):
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+
+
+DB_COUNTS = [1, 2, W - 1, W, W + 1, 3 * W + 1]
+SETS = [(m.__name__, _distinct) for m in DATA_MAKERS if m is not _empty] + [
+    ("_seeded", _duplicate_stems), ("_window_edge", _two_db_host)]
+
+
+@pytest.mark.parametrize("n", DB_COUNTS)
+@pytest.mark.parametrize("first, stem", SETS,
+                         ids=[f"{f}{'' if s is _distinct else s.__name__}" for f, s in SETS])
+@pytest.mark.parametrize("max_samples", [torch_fs.MAX_STEPS, 2], ids=["whole", "cut"])
+def test_workers_load_what_the_inline_read_loads(tmp_path, templates, monkeypatch, first,
+                                                 stem, n, max_samples):
+    paths = _db_set(tmp_path, templates, first, n, stem)
+    want, inline = _load(paths, monkeypatch, 1, max_samples=max_samples)
+    got, attrs = _load(paths, monkeypatch, W, max_samples=max_samples)
+    _assert_same_load(got, want)
+    assert inline["workers"] == "0" and attrs["workers"] == str(min(W, n) if n > 1 else 0)
+    assert {k: attrs[k] for k in ("rows_fetched", "rows_tombstoned", "dbs_block",
+                                  "dbs_columns")} == {
+        k: inline[k] for k in ("rows_fetched", "rows_tombstoned", "dbs_block", "dbs_columns")}
+    # a host over two DBs is read into columns, both its DBs; so is a DB with
+    # a link cut whose counter left int32 first (_values_to_convert's)
+    names = [m.__name__ for m in DATA_MAKERS]
+    columns = {j for i in range(1, n - 1, 2) for j in (i, i + 1)} if stem is _two_db_host else set()
+    columns |= {i for i in range(n) if max_samples == 2 and names[
+        (names.index(first) + i) % len(names)] == "_values_to_convert"}
+    assert (attrs["dbs_block"], attrs["dbs_columns"]) == (str(n - len(columns)),
+                                                          str(len(columns)))
+
+
+def _readers():
+    """This process's native reader threads, by name."""
+    names = []
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/comm") as f:
+                names.append(f.read().strip())
+        except OSError:
+            pass  # a thread that ended while listed
+    return [n for n in names if n == "fleet_scan-read"]
+
+
+def _db_fds(paths):
+    """This process's descriptors open on any of ``paths``."""
+    targets = {os.path.realpath(p) for p in paths}
+    fds = []
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            if os.path.realpath(os.readlink(f"/proc/self/fd/{fd}")) in targets:
+                fds.append(fd)
+        except OSError:
+            pass
+    return fds
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+@pytest.mark.parametrize("make, exc, message", [
+    (lambda tmp: tmp / "missing.db", sqlite3.OperationalError, "unable to open database file"),
+    (_not_a_db, sqlite3.DatabaseError, "file is not a database"),
+], ids=["missing", "not_a_db"])
+def test_a_failing_db_raises_as_it_did_and_leaves_nothing_running(
+        tmp_path, templates, monkeypatch, where, make, exc, message):
+    paths = _db_set(tmp_path, templates, "_seeded", 3 * W + 1)
+    bad_dir = tmp_path / "bad"
+    bad_dir.mkdir()
+    bad = str(make(bad_dir))
+    at = {"first": 0, "middle": len(paths) // 2, "last": len(paths)}[where]
+    paths.insert(at, bad)
+    # a day of 36 links a DB: the reads after the failing DB are still
+    # walking when it is taken
+    _cores(monkeypatch, W)
+    raised = []
+
+    def load():
+        try:
+            torch_fs.load_fleet_history(paths, window_seconds=3600, now=NOW)
+        except Exception as e:  # the test's thread hands the failure back
+            raised.append(e)
+
+    t = threading.Thread(target=load)
+    t.start()
+    t.join(60)
+    assert not t.is_alive(), "the load hung"
+    assert len(raised) == 1 and type(raised[0]) is exc and str(raised[0]) == message
+    assert _readers() == [] and _db_fds(paths) == []
+
+
+def _columns_block(path, start, max_samples):
+    """The column path's block of one DB: its columns, the tombstone floor
+    applied and packed by ``_host_block``, as the loader does."""
+    tombstones, names, (lid, ts, state, crc) = _read(path, start)
+    if not isinstance(tombstones, dict):
+        tombstones = {}
+    global_ts = tombstones.get("*", 0.0)
+    floor = np.array([max(global_ts, tombstones.get(link, 0.0)) for link in names])
+    keep = ts >= floor[lid] if len(names) else np.zeros(0, bool)
+    ids, *arrays, cut = torch_fs._host_block(lid[keep], state[keep], crc[keep], len(names),
+                                            max_samples)
+    return names, ids, arrays, cut, len(lid), len(lid) - int(keep.sum())
+
+
+def _block(path, start, max_samples):
+    """One DB's block as the loader's native read makes it."""
+    with snapshot_reader.Reads([_uri(path)], [True], TOMBSTONE_QUERY, torch_fs.QUERY,
+                               torch_fs.LAST_QUERY, start, max_samples, 1) as reads:
+        read = reads.take(0)
+        with read.db as db:
+            assert read.rc != snapshot_reader.FLOORS
+            return db.finish(read.rc)
+
+
+@pytest.mark.parametrize("max_samples", [torch_fs.MAX_STEPS, 30, 2, 1])
+@pytest.mark.parametrize("make", DATA_MAKERS + [_uri_syntax_in_the_path])
+def test_the_block_call_gives_the_column_path_s_block(tmp_path, make, max_samples):
+    path = make(tmp_path)
+    start = NOW - 3600
+    names, ids, arrays, cut, fetched, dropped = _columns_block(path, start, max_samples)
+    block = _block(path, start, max_samples)
+    if block is None:  # only where a cut link's counter left int32 first
+        assert make is _values_to_convert and max_samples < 4
+        return
+    assert block.names == names and (block.fetched, block.tombstoned) == (fetched, dropped)
+    assert np.array_equal(np.flatnonzero(block.kept), ids)
+    assert np.array_equal(np.flatnonzero(block.kept > max_samples), cut)
+    for got, want in zip((block.states, block.counters, block.valid), arrays):
+        assert got.dtype == want.dtype and np.array_equal(got[ids], want)
+        assert not got[np.flatnonzero(block.kept == 0)].any()
+    assert block.states.shape[1] == arrays[0].shape[1]
+
+
+def test_a_tombstone_that_is_no_number_takes_the_column_path(tmp_path, monkeypatch):
+    # a TEXT floor on a link without rows: the columns' arithmetic, as before
+    path = _seeded(tmp_path)
+    conn = sqlite3.connect(path)
+    conn.execute(f"INSERT INTO {torch_fs.TOMBSTONE_TABLE} (link, ts) VALUES ('gone', 'abc')")
+    conn.commit()
+    conn.close()
+    got, attrs = _load([path, _host_db(tmp_path / "g.db", 18, 90)], monkeypatch, W)
+    assert (attrs["dbs_block"], attrs["dbs_columns"]) == ("1", "1")
+    assert len(got[0]) == 36 + 18 and got[4] == []
+
+
+def test_workers_grow_blocks_past_their_first_size(tmp_path, monkeypatch):
+    # 300 links of 150 samples: more than the first block's 256 rows and 64
+    # samples, so the first DBs' blocks grow on the workers (their memory
+    # comes from the taking thread), and the later DBs start at the size
+    # the first ones reached; one host is smaller than the rest
+    paths = [_host_db(tmp_path / f"host{i}.db", links=300 if i != 5 else 200,
+                      minutes=150 if i != 5 else 90, seed=i)
+             for i in range(2 * W + 1)]
+    want, _inline = _load(paths, monkeypatch, 1, window=150 * 60)
+    got, attrs = _load(paths, monkeypatch, W, window=150 * 60)
+    _assert_same_load(got, want)
+    assert attrs["workers"] == str(W) and attrs["dbs_block"] == str(2 * W + 1)
+    assert got[1].shape == (2 * W * 300 + 200, 150)
+
+
+ARENAS = """
+import ctypes, glob, io, os, sys
+sys.path.insert(0, {repo!r})
+os.sched_getaffinity = lambda _pid: set(range({w}))
+import gpud_tpu_torch.fleet_scan as fs
+
+def arenas():
+    # glibc's malloc_stats prints one "Arena n:" line an arena on stderr
+    r, w = os.pipe()
+    saved = os.dup(2)
+    os.dup2(w, 2)
+    ctypes.CDLL(None).malloc_stats()
+    os.dup2(saved, 2)
+    os.close(w)
+    return os.read(r, 1 << 20).decode().count("Arena ")
+
+paths = sorted(glob.glob({pattern!r}))
+fs.load_fleet_history(paths[:1], 9000, now={now!r})
+before = arenas()
+for _ in range(2):
+    fs.load_fleet_history(paths, 9000, now={now!r})
+print(before, arenas())
+"""
+
+
+def test_the_workers_leave_no_malloc_arena(tmp_path):
+    # a worker thread that called malloc or free would hold a malloc arena
+    # of its own, and keep its peak resident, for the rest of the process
+    import platform
+
+    if platform.libc_ver()[0] != "glibc":
+        pytest.skip("counts glibc's malloc arenas")
+    for i in range(2 * W + 1):
+        _host_db(tmp_path / f"host{i}.db", links=300, minutes=150, seed=i)
+    code = ARENAS.format(repo=str(REPO), w=W, pattern=str(tmp_path / "host*.db"), now=NOW)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    before, after = map(int, proc.stdout.split())
+    assert after == before

@@ -6,8 +6,10 @@ of their growth against the reference's classes, the same spans as profiler
 annotations on the trace's clock, and the CLI's ``--spans``."""
 
 import json
+import os
 import sqlite3
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -132,8 +134,17 @@ def test_one_sweep_records_the_tree(tmp_path):
             p["start_unix"] + p["duration_seconds"] + 1e-3)
 
 
-def test_loader_counters_equal_counts_from_the_dbs(tmp_path):
+def _cores(monkeypatch, n):
+    """The loader sees ``n`` usable cores: as many workers, at most."""
+    monkeypatch.setattr(os, "sched_getaffinity", lambda _pid: set(range(n)))
+
+
+def test_loader_counters_equal_counts_from_the_dbs(tmp_path, monkeypatch):
+    # one core: the DBs are read inline, one after another, so each part of
+    # the loader lies inside its span (test_open_and_fetch_are_sums_over_the_dbs
+    # holds them side by side)
     paths = _tombstoned_fleet(tmp_path)
+    _cores(monkeypatch, 1)
     _res, spans = _sweep(paths)
     fetched, dropped = _counts_from_dbs(paths, NOW - WINDOW)
     load = _attrs(spans, "fleet_scan.load")
@@ -147,8 +158,97 @@ def test_loader_counters_equal_counts_from_the_dbs(tmp_path):
     parts = [float(load[k]) for k in ("open_s", "fetch_s", "slowest_db_s")]
     assert all(0 < x < load_s for x in parts)
     assert float(load["open_s"]) + float(load["fetch_s"]) < load_s
+    assert (load["workers"], load["dbs_block"], load["dbs_columns"]) == ("0", "3", "0")
+    assert float(load["wait_s"]) == 0 and 0 < float(load["read_cpu_s"])
     pack = _attrs(spans, "fleet_scan.pack")
     assert (pack["links"], pack["t_max"], pack["truncated"]) == ("60", "60", "0")
+
+
+def _shared_host_fleet(tmp_path):
+    """The tombstoned fleet, and host0 once more: a DB in another directory
+    named host0.db (host ``host0-2``) and one named host0-2.db, which joins
+    it. The last two are one host over two DBs."""
+    paths = _tombstoned_fleet(tmp_path)
+    for sub, name in (("b", "host0.db"), ("c", "host0-2.db")):
+        (tmp_path / sub).mkdir()
+        _host_db(tmp_path / sub / name, links=20, samples=90, t0=NOW - 90 * 60 + 1,
+                 seed=len(paths)).close()
+        paths.append(str(tmp_path / sub / name))
+    return paths
+
+
+@pytest.mark.parametrize("cores", [1, 2, 8])
+def test_worker_counters_equal_counts_from_the_dbs(tmp_path, monkeypatch, cores):
+    # workers: min(cores, DBs), 0 inline; the host over two DBs is read
+    # into columns, the others into blocks; rows as the DBs count them
+    paths = _shared_host_fleet(tmp_path)
+    _cores(monkeypatch, cores)
+    _res, spans = _sweep(paths)
+    load = _attrs(spans, "fleet_scan.load")
+    workers = min(cores, len(paths))
+    assert load["workers"] == str(workers if workers > 1 else 0)
+    assert (load["dbs"], load["dbs_block"], load["dbs_columns"]) == ("5", "3", "2")
+    fetched, dropped = _counts_from_dbs(paths, NOW - WINDOW)
+    assert (int(load["rows_fetched"]), int(load["rows_tombstoned"])) == (fetched, dropped)
+    load_s = next(s for s in spans if s["name"] == "fleet_scan.load")["duration_seconds"]
+    assert 0 <= float(load["wait_s"]) <= load_s
+    assert (float(load["wait_s"]) == 0) == (workers < 2)
+    assert float(load["read_cpu_s"]) > 0
+
+
+def test_open_and_fetch_are_sums_over_the_dbs(tmp_path, monkeypatch):
+    # four DBs of 86,400 rows each on four workers: the counters add each
+    # DB's own seconds, so together they pass the load span, in which the
+    # four reads overlap
+    paths = []
+    for i in range(4):
+        _host_db(tmp_path / f"host{i}.db", links=144, samples=600, t0=NOW - 600 * 5,
+                 step=5.0, seed=i).close()
+        paths.append(str(tmp_path / f"host{i}.db"))
+    _cores(monkeypatch, 4)
+    _res, spans = _sweep(paths)
+    load = _attrs(spans, "fleet_scan.load")
+    load_s = next(s for s in spans if s["name"] == "fleet_scan.load")["duration_seconds"]
+    opens, fetch = float(load["open_s"]), float(load["fetch_s"])
+    assert (load["workers"], load["rows_fetched"]) == ("4", str(4 * 144 * 600))
+    assert load_s < opens + fetch
+    assert 0 < float(load["wait_s"]) <= load_s
+
+
+def _load_wait_ms(n_sweeps=1):
+    from fleetbench.metrics import load_wait_ms
+
+    return load_wait_ms.read(SimpleNamespace(sweeps=n_sweeps))
+
+
+@pytest.mark.parametrize("cores", [1, 4])
+def test_load_wait_ms_reads_the_loader_s_wait(tmp_path, monkeypatch, cores):
+    # the benchmark's reader: each sweep's wait_s in ms, averaged over the
+    # window's sweeps, 0 where the DBs are read inline
+    paths = _tombstoned_fleet(tmp_path)
+    _cores(monkeypatch, cores)
+    DEFAULT_TRACER.clear()
+    for _ in range(2):
+        torch_fs.fleet_scan(paths, window_seconds=WINDOW, now=NOW, device="cpu")
+    loads = [s for s in _oldest_first() if s["name"] == "fleet_scan.load"]
+    waits = [float(s["attrs"]["wait_s"]) for s in loads]
+    assert len(waits) == 2 and all(0 <= w <= s["duration_seconds"] for w, s in zip(waits, loads))
+    assert _load_wait_ms(2) == pytest.approx(sum(waits) / 2 * 1e3, rel=1e-9)
+    assert _load_wait_ms(1) == pytest.approx(waits[-1] * 1e3, rel=1e-9)
+    assert (_load_wait_ms(2) == 0) == (cores == 1)
+
+
+def test_load_wait_ms_is_silent_without_the_counter(tmp_path, monkeypatch):
+    # a program whose load span lacks wait_s, or that records no span,
+    # leaves the metric out of the benchmark's line
+    _sweep(_tombstoned_fleet(tmp_path))
+    spans = DEFAULT_TRACER.snapshot(component=torch_fs.COMPONENT)
+    for s in spans:
+        s.get("attrs", {}).pop("wait_s", None)
+    monkeypatch.setattr(DEFAULT_TRACER, "snapshot", lambda component=None: spans)
+    assert _load_wait_ms() is None
+    monkeypatch.setattr(DEFAULT_TRACER, "snapshot", lambda component=None: [])
+    assert _load_wait_ms() is None
 
 
 PAUSE_S = 0.05
@@ -165,27 +265,43 @@ def _slow(monkeypatch, name):
     monkeypatch.setattr(snapshot_reader.SnapshotDB, name, slow)
 
 
-def _slow_opens(monkeypatch):
-    _slow(monkeypatch, "__init__")
+def _slow_opens(monkeypatch, paths):
+    # a tombstone whose name is not ASCII: the native read leaves the
+    # tombstones to Python, which reads them on the sweeping thread
+    for path in paths:
+        db = DB(path)
+        NVLinkStore(db).set_tombstone("gpu9/nvlink\u00e9", NOW - 60)
+        db.close()
+    _slow(monkeypatch, "tombstones")
 
 
-def _slow_fetches(monkeypatch):
-    _slow(monkeypatch, "window")
+def _slow_fetches(monkeypatch, paths):
+    # a state stored as TEXT: the walk hands it to Python to convert and
+    # goes on on the sweeping thread
+    for path in paths:
+        conn = sqlite3.connect(path)
+        conn.execute(f"UPDATE {torch_fs.TABLE} SET state=CAST(state AS TEXT) "
+                     f"WHERE rowid=(SELECT MAX(rowid) FROM {torch_fs.TABLE})")
+        conn.commit()
+        conn.close()
+    _slow(monkeypatch, "finish")
 
 
-def _slow_blocks(monkeypatch):
-    real = torch_fs._host_block
+def _slow_blocks(monkeypatch, paths):
+    # the sweeping thread's own work a host: placing its block in the fleet
+    real = torch_fs._place_block
 
-    def block(*args):
+    def place(*args):
         time.sleep(PAUSE_S)
         return real(*args)
 
-    monkeypatch.setattr(torch_fs, "_host_block", block)
+    monkeypatch.setattr(torch_fs, "_place_block", place)
 
 
 def _parts(spans):
-    """The loader's four parts in seconds: opens, SQLite's calls, the
-    per-host array work (the remainder) and the fleet's pack."""
+    """The loader's four parts in seconds: opens, SQLite's calls (each
+    summed over the DBs), the remainder (the sweeping thread's work a host,
+    less the overlap of the DBs' reads) and the fleet's pack."""
     load = next(s for s in spans if s["name"] == "fleet_scan.load")
     pack = next(s for s in spans if s["name"] == "fleet_scan.pack")["duration_seconds"]
     opens, fetch = (float(load["attrs"][k]) for k in ("open_s", "fetch_s"))
@@ -194,14 +310,16 @@ def _parts(spans):
 
 
 @pytest.mark.parametrize("part, slow, pauses", [
-    ("open", _slow_opens, 3),          # one open a DB
-    ("fetch", _slow_fetches, 3),       # one window walk a DB
+    ("open", _slow_opens, 3),          # one tombstone read a DB
+    ("fetch", _slow_fetches, 3),       # one walk's rest a DB
     ("arrays", _slow_blocks, 3),       # one block a host
 ])
 def test_each_counter_times_its_own_part(tmp_path, monkeypatch, part, slow, pauses):
-    # a pause planted in one part of the loader shows in that part alone
+    # a pause planted in one part of the loader shows in that part alone;
+    # read inline, one DB after another, so that the parts do not overlap
     paths = _tombstoned_fleet(tmp_path)
-    slow(monkeypatch)
+    _cores(monkeypatch, 1)
+    slow(monkeypatch, paths)
     _res, spans = _sweep(paths)
     got = _parts(spans)
     assert got[part] >= pauses * PAUSE_S
