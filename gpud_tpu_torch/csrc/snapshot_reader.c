@@ -3,34 +3,38 @@
  *
  * tpud_open opens a DB read-only through a URI, as Python's sqlite3 does
  * (busy timeout 5,000 ms), and reads the tombstone table. The window's query
- * then runs in one of two ways:
+ * then writes each row straight into its host's block (tpud_block): one row
+ * of [links, t] int8 states, int32 counters and valid flags a link, the row's
+ * samples left-aligned in ts order. A sample before its link's set-healthy
+ * floor is dropped as it arrives; a link keeps its latest max_samples
+ * samples, its counter rebased on the first kept one and clipped to int32. A
+ * link whose counter once left int32 keeps a ring of its raw counters too, so
+ * that a cut rebases it exactly. The block (counters, then states, then valid
+ * flags) lives in pages mapped for it alone, apart from malloc's heap, so they
+ * go back to the system the moment the caller lets it go; it is packed to its
+ * final shape where it was written, and handed to the caller.
  *
- * - tpud_window steps its rows straight into four columns: link id (the
- *   order first fetched), ts, state and CRC.
- * - a pool's read (below) writes each row straight into the DB's block: one row of
- *   [links, t] int8 states, int32 counters and valid flags a link, the
- *   row's samples left-aligned in ts order. A sample before its link's
- *   set-healthy floor is dropped as it arrives; a link keeps its latest
- *   max_samples samples, its counter rebased on the first kept one and
- *   clipped to int32. The block (counters, then states, then valid flags)
- *   lives in pages mapped for it alone, apart from malloc's heap, so they
- *   go back to the system the moment the caller lets it go; it is packed
- *   to its final shape where it was written, and handed to the caller.
+ * A host over several DBs has one block: the walk of each of its DBs after
+ * the first continues the block where the DB before left it, each link
+ * already in it taking this DB's floor, and the host's last DB closes it.
  *
- * A value neither converts itself (a NULL, TEXT or BLOB number, a REAL state
- * or CRC, a state outside int8) stops the walk with TPUD_VALUE; the caller
- * converts it, and tpud_resume stores the result and walks on. At the end
- * the DB is closed; what was read lives until tpud_close.
+ * A value this side does not convert itself (a NULL, TEXT or BLOB number, a
+ * REAL state or CRC, a state outside int8) stops the walk with TPUD_VALUE; the
+ * caller converts it, and tpud_resume stores the result and walks on.
+ * Tombstones this side does not judge stop the read with TPUD_FLOORS before
+ * its walk; the caller judges them and hands the floors to tpud_walk. At the
+ * end the DB is closed; what was read lives until tpud_close.
  *
  * A pool (tpud_pool_start) reads a list of DBs as the loader asks for them.
  * The thread that takes the DBs (tpud_pool_take) opens each, reads its
- * tombstones into floors, prepares its walk and sizes its block, a window of
- * DBs ahead; worker threads of small stacks walk them; the taking thread
- * ends each walk. A worker calls neither malloc nor free: what it needs is
- * allocated, and what it drops freed, by the taking thread, so no worker
- * has a malloc arena of its own to keep its peak resident after the load.
- * Where the pool has no thread, the taking thread walks each DB too. A read
- * stops where only the caller can go on.
+ * tombstones into floors, and, for a host's first DB, prepares its walk and
+ * sizes its block, a window of DBs ahead; worker threads of small stacks walk
+ * those; the taking thread ends each walk, and walks a DB that continues a
+ * block, or whose floors the caller judged, itself. A worker calls neither
+ * malloc nor free: what it needs is allocated, and what it drops freed, by
+ * the taking thread, so no worker has a malloc arena of its own to keep its
+ * peak resident after the load. Where the pool has no thread, the taking
+ * thread walks each DB too.
  *
  * SQLite's header is not needed: the few functions used are declared here,
  * and the library is the one the interpreter's sqlite3 module loaded.
@@ -83,7 +87,6 @@ int sqlite3_column_bytes(sqlite3_stmt *stmt, int i);
 #define SQLITE_DBCONFIG_LOOKASIDE 1001
 
 #define TPUD_VALUE 1000 /* a value for the caller to convert */
-#define TPUD_REREAD 1001 /* a block this reader cannot make exactly: read columns */
 #define TPUD_FLOORS 1002 /* tombstones only the caller can judge: no walk started */
 #define BUSY_TIMEOUT_MS 5000 /* Python's sqlite3.connect(timeout=5.0) */
 /* the window's walk visits each index and table page once, in order: the
@@ -116,6 +119,26 @@ typedef struct {
 
 typedef struct tpud_pool tpud_pool;
 
+/* A host's block, written by the walks of its DBs in turn. */
+typedef struct {
+    /* read by the caller (the ctypes Structure mirrors these fields) */
+    name_table links;       /* the link names by id, in the order first fetched */
+    int64_t *kept;          /* samples a link kept, before the cut */
+    int64_t t;              /* once closed, the block is [links.n, t] */
+    char *buf;              /* counters, then states, then valid flags */
+    int64_t bytes;          /* and the bytes mapped for them */
+    /* private */
+    int64_t max_samples;
+    int64_t links_cap;      /* the rows and samples held */
+    int64_t t_cap;
+    int32_t *counter;       /* in buf */
+    int8_t *state;
+    uint8_t *valid;
+    int64_t *base;          /* per link: the counter of its first sample */
+    double *floor;          /* its floor in the DB being walked */
+    int64_t **raw;          /* once its counter left int32, its raw counters, t_cap of them */
+} tpud_block;
+
 typedef struct {
     /* read by the caller (the ctypes Structure mirrors these fields) */
     int64_t errcode;        /* SQLite's extended code of the last failure */
@@ -124,23 +147,14 @@ typedef struct {
     int64_t n_tombstones;
     tpud_value *tombstones; /* link, ts of each row */
     int64_t n_rows;         /* rows fetched */
-    int32_t *lid;           /* tpud_window's columns */
-    double *ts;
-    int8_t *state;
-    int64_t *crc;
-    name_table links;       /* the link names by id */
+    int64_t n_tombstoned;   /* of them, dropped by a floor */
     int64_t bad_col;        /* the column of the value to convert */
     tpud_value bad;
-    int64_t n_tombstoned;   /* a block's walk: rows dropped by a floor */
-    int64_t t;              /* and its block, [links.n, t] each */
-    char *b_buf;            /* the block: counters, states, valid flags */
-    int64_t b_bytes;        /* and the bytes mapped for it */
-    int64_t *kept;          /* samples a link kept, before the cut */
+    tpud_block *b;          /* the host's block, which the walk writes */
     /* private */
+    int owns;               /* the host's last DB: its walk closes the block, tpud_close frees it */
     sqlite3 *db;
     sqlite3_stmt *stmt;
-    int block;              /* the walk writes a block, else columns */
-    int64_t cap;            /* the columns' rows */
     int32_t r_lid;          /* the row being read */
     double r_ts;
     int8_t r_state;
@@ -148,15 +162,6 @@ typedef struct {
     name_table floors;      /* tombstoned link names, their floors in floor_of */
     double *floor_of;
     double floor0;          /* the floor of a link without a tombstone */
-    int64_t max_samples;
-    int64_t links_cap;      /* the block's rows and samples */
-    int64_t t_cap;
-    int32_t *b_counter;     /* in b_buf */
-    int8_t *b_state;
-    uint8_t *b_valid;
-    int64_t *base;          /* per link: the counter of its first sample */
-    double *floor;
-    uint8_t *clipped;       /* a counter was clipped to int32 */
     double last_ts;         /* the walk's last rows: last_n rows at last_ts */
     int64_t last_n;
     tpud_pool *pool;        /* a worker's pool, while a worker walks */
@@ -242,6 +247,16 @@ static void free_dropped(tpud_reader *h) {
         if (n) tpud_unmap(m, n);
         else free(m);
     }
+}
+
+/* `old`'s first `used` bytes in new zeroed memory of `bytes`, `old` let go;
+ * NULL out of memory. */
+static void *regrow(tpud_reader *h, void *old, int64_t used, int64_t bytes) {
+    char *p = zalloc(h, bytes, 0);
+    if (!p) return NULL;
+    if (used) memcpy(p, old, used);
+    release(h, old, 0);
+    return p;
 }
 
 /* A copy of n bytes, NUL-terminated. */
@@ -361,20 +376,16 @@ static int grow_slots(tpud_reader *h, name_table *t, int64_t n) {
 
 /* Room in the table for `names` names of `bytes` bytes in all. */
 static int reserve_names(tpud_reader *h, name_table *t, int64_t names, int64_t bytes) {
+    void *p;
     if (names > t->ends_cap) {
-        int64_t *ends = zalloc(h, names * sizeof *ends, 0);
-        if (!ends) return SQLITE_NOMEM;
-        if (t->n) memcpy(ends, t->ends, t->n * sizeof *ends);
-        release(h, t->ends, 0);
-        t->ends = ends;
+        if (!(p = regrow(h, t->ends, t->n * sizeof *t->ends, names * sizeof *t->ends)))
+            return SQLITE_NOMEM;
+        t->ends = p;
         t->ends_cap = names;
     }
     if (bytes > t->names_cap) {
-        char *buf = zalloc(h, bytes, 0);
-        if (!buf) return SQLITE_NOMEM;
-        if (t->n) memcpy(buf, t->names, t->ends[t->n - 1]);
-        release(h, t->names, 0);
-        t->names = buf;
+        if (!(p = regrow(h, t->names, t->n ? t->ends[t->n - 1] : 0, bytes))) return SQLITE_NOMEM;
+        t->names = p;
         t->names_cap = bytes;
     }
     int64_t slots = t->n_slots ? t->n_slots : 256;
@@ -410,111 +421,116 @@ static void free_names(name_table *t) {
     free(t->slots);
 }
 
-static int resize_columns(tpud_reader *h, int64_t cap) {
-    void *p;
-    if (!(p = realloc(h->lid, cap * sizeof *h->lid))) return SQLITE_NOMEM;
-    h->lid = p;
-    if (!(p = realloc(h->ts, cap * sizeof *h->ts))) return SQLITE_NOMEM;
-    h->ts = p;
-    if (!(p = realloc(h->state, cap * sizeof *h->state))) return SQLITE_NOMEM;
-    h->state = p;
-    if (!(p = realloc(h->crc, cap * sizeof *h->crc))) return SQLITE_NOMEM;
-    h->crc = p;
-    h->cap = cap;
-    return SQLITE_OK;
-}
-
 /* The block [links_cap, t_cap] laid out anew as [links, t]: zeroed, each
- * row's samples kept. */
+ * row's samples kept, and each raw ring t long. */
 static int resize_block(tpud_reader *h, int64_t links, int64_t t) {
+    tpud_block *b = h->b;
+    int64_t keep = b->t_cap < t ? b->t_cap : t;
+    int64_t rows = b->links_cap < links ? b->links_cap : links;
+    if (b->links.n < rows) rows = b->links.n;
+    for (int64_t k = 0; k < rows && t != b->t_cap; k++) {
+        int64_t *raw = b->raw[k] ? regrow(h, b->raw[k], keep * 8, t * 8) : NULL;
+        if (b->raw[k] && !raw) return SQLITE_NOMEM;
+        b->raw[k] = raw;
+    }
     int64_t cells = links * t;
     char *buf = zalloc(h, cells * 6, 1);
     if (!buf) return SQLITE_NOMEM;
     int32_t *ct = (int32_t *)buf;
     int8_t *st = (int8_t *)(buf + cells * 4);
     uint8_t *vd = (uint8_t *)(buf + cells * 5);
-    int64_t keep = h->t_cap < t ? h->t_cap : t;
-    int64_t rows = h->links_cap < links ? h->links_cap : links;
-    if (h->links.n < rows) rows = h->links.n;
     for (int64_t k = 0; k < rows; k++) {
-        memcpy(ct + k * t, h->b_counter + k * h->t_cap, keep * 4);
-        memcpy(st + k * t, h->b_state + k * h->t_cap, keep);
-        memcpy(vd + k * t, h->b_valid + k * h->t_cap, keep);
+        memcpy(ct + k * t, b->counter + k * b->t_cap, keep * 4);
+        memcpy(st + k * t, b->state + k * b->t_cap, keep);
+        memcpy(vd + k * t, b->valid + k * b->t_cap, keep);
     }
-    release(h, h->b_buf, h->b_bytes);
-    h->b_buf = buf;
-    h->b_bytes = cells * 6;
-    h->b_counter = ct;
-    h->b_state = st;
-    h->b_valid = vd;
-    h->links_cap = links;
-    h->t_cap = t;
+    release(h, b->buf, b->bytes);
+    b->buf = buf;
+    b->bytes = cells * 6;
+    b->counter = ct;
+    b->state = st;
+    b->valid = vd;
+    b->links_cap = links;
+    b->t_cap = t;
     return SQLITE_OK;
 }
 
 /* The per-link state and the block's rows for `cap` links. */
 static int reserve_links(tpud_reader *h, int64_t cap) {
-    void *kept = zalloc(h, cap * sizeof *h->kept, 0), *base = zalloc(h, cap * sizeof *h->base, 0);
-    void *floor = zalloc(h, cap * sizeof *h->floor, 0), *clipped = zalloc(h, cap, 0);
-    if (!kept || !base || !floor || !clipped) return SQLITE_NOMEM;
-    int64_t n = h->links.n < h->links_cap ? h->links.n : h->links_cap;
-    if (n) {
-        memcpy(kept, h->kept, n * sizeof *h->kept);
-        memcpy(base, h->base, n * sizeof *h->base);
-        memcpy(floor, h->floor, n * sizeof *h->floor);
-        memcpy(clipped, h->clipped, n);
-    }
-    release(h, h->kept, 0);
-    release(h, h->base, 0);
-    release(h, h->floor, 0);
-    release(h, h->clipped, 0);
-    h->kept = kept;
-    h->base = base;
-    h->floor = floor;
-    h->clipped = clipped;
-    int64_t t = h->t_cap ? h->t_cap : 64;
-    return resize_block(h, cap, t < h->max_samples ? t : h->max_samples);
+    tpud_block *b = h->b;
+    int64_t n = b->links.n < b->links_cap ? b->links.n : b->links_cap;
+    void *p;
+    if (!(p = regrow(h, b->kept, n * 8, cap * 8))) return SQLITE_NOMEM;
+    b->kept = p;
+    if (!(p = regrow(h, b->base, n * 8, cap * 8))) return SQLITE_NOMEM;
+    b->base = p;
+    if (!(p = regrow(h, b->floor, n * 8, cap * 8))) return SQLITE_NOMEM;
+    b->floor = p;
+    if (!(p = regrow(h, b->raw, n * 8, cap * 8))) return SQLITE_NOMEM;
+    b->raw = p;
+    int64_t t = b->t_cap ? b->t_cap : 64;
+    return resize_block(h, cap, t < b->max_samples ? t : b->max_samples);
 }
 
-/* Room for link k: its row of the block and its per-link state, its floor
- * looked up once, when it is first seen. */
-static int add_link(tpud_reader *h, int64_t k) {
-    if (k >= h->links_cap && reserve_links(h, 2 * h->links_cap > 256 ? 2 * h->links_cap : 256))
-        return SQLITE_NOMEM;
-    int64_t start = k ? h->links.ends[k - 1] : 0;
+/* Link k's floor in this DB: its tombstone's, else that of a link without. */
+static int link_floor(tpud_reader *h, int64_t k) {
+    tpud_block *b = h->b;
+    int64_t start = k ? b->links.ends[k - 1] : 0;
     int64_t f = h->floors.n
-        ? name_id(h, &h->floors, h->links.names + start, h->links.ends[k] - start, 0) : -2;
+        ? name_id(h, &h->floors, b->links.names + start, b->links.ends[k] - start, 0) : -2;
     if (f == -1) return SQLITE_NOMEM;
-    h->floor[k] = f >= 0 ? h->floor_of[f] : h->floor0;
+    b->floor[k] = f >= 0 ? h->floor_of[f] : h->floor0;
+    return SQLITE_OK;
+}
+
+/* Room for link k, first seen: its row of the block, its per-link state. */
+static int add_link(tpud_reader *h, int64_t k) {
+    tpud_block *b = h->b;
+    if (k >= b->links_cap && reserve_links(h, 2 * b->links_cap > 256 ? 2 * b->links_cap : 256))
+        return SQLITE_NOMEM;
+    return link_floor(h, k);
+}
+
+/* Link k's raw counters from here on: a ring beside its row, its `n`
+ * samples so far filled in (none was clipped, so base + delta is exact). */
+static int keep_raw(tpud_reader *h, int64_t k, int64_t n) {
+    tpud_block *b = h->b;
+    int64_t *raw = zalloc(h, b->t_cap * 8, 0);
+    if (!raw) return SQLITE_NOMEM;
+    for (int64_t j = 0; j < n && j < b->t_cap; j++)
+        raw[j] = (int64_t)((uint64_t)b->base[k] + (uint64_t)(int64_t)b->counter[k * b->t_cap + j]);
+    b->raw[k] = raw;
     return SQLITE_OK;
 }
 
 /* The row just read, into its link's row of the block. */
 static int put(tpud_reader *h) {
-    int64_t k = h->r_lid, n = h->kept[k];
-    if (!(h->r_ts >= h->floor[k])) {
+    tpud_block *b = h->b;
+    int64_t k = h->r_lid, n = b->kept[k];
+    if (!(h->r_ts >= b->floor[k])) {
         h->n_tombstoned++;
         return SQLITE_OK;
     }
     /* past max_samples, a link's row is a ring over its latest samples */
-    int64_t at = n < h->max_samples ? n : n % h->max_samples;
-    if (at >= h->t_cap) {
-        int64_t t = 2 * h->t_cap > 64 ? 2 * h->t_cap : 64;
-        if (resize_block(h, h->links_cap, t < h->max_samples ? t : h->max_samples))
+    int64_t at = n < b->max_samples ? n : n % b->max_samples;
+    if (at >= b->t_cap) {
+        int64_t t = 2 * b->t_cap > 64 ? 2 * b->t_cap : 64;
+        if (resize_block(h, b->links_cap, t < b->max_samples ? t : b->max_samples))
             return SQLITE_NOMEM;
     }
-    if (n == 0) h->base[k] = h->r_crc;
+    if (n == 0) b->base[k] = h->r_crc;
     /* as NumPy subtracts int64: wrapping */
-    int64_t d = (int64_t)((uint64_t)h->r_crc - (uint64_t)h->base[k]);
-    if (d < INT32_MIN || d > INT32_MAX) {
-        d = d < INT32_MIN ? INT32_MIN : INT32_MAX;
-        h->clipped[k] = 1;
+    int64_t d = (int64_t)((uint64_t)h->r_crc - (uint64_t)b->base[k]);
+    if (b->raw[k] || d < INT32_MIN || d > INT32_MAX) {
+        if (!b->raw[k] && keep_raw(h, k, n)) return SQLITE_NOMEM;
+        b->raw[k][at] = h->r_crc;
+        d = d < INT32_MIN ? INT32_MIN : d > INT32_MAX ? INT32_MAX : d;
     }
-    at += k * h->t_cap;
-    h->b_state[at] = h->r_state;
-    h->b_counter[at] = (int32_t)d;
-    h->b_valid[at] = 1;
-    h->kept[k] = n + 1;
+    at += k * b->t_cap;
+    b->state[at] = h->r_state;
+    b->counter[at] = (int32_t)d;
+    b->valid[at] = 1;
+    b->kept[k] = n + 1;
     return SQLITE_OK;
 }
 
@@ -532,59 +548,62 @@ static void reverse(int8_t *s, int32_t *c, int64_t a, int64_t b) {
 /* The block packed to [links.n, t] where it is, its pages past that
  * unmapped: each array's rows move down, in address order, so none is
  * overwritten before it moved. */
-static void pack_block(tpud_reader *h, int64_t t) {
-    int64_t links = h->links.n, cells = links * t;
-    int32_t *ct = (int32_t *)h->b_buf;
-    int8_t *st = (int8_t *)(h->b_buf + cells * 4);
-    uint8_t *vd = (uint8_t *)(h->b_buf + cells * 5);
+static void pack_block(tpud_block *b, int64_t t) {
+    int64_t links = b->links.n, cells = links * t;
+    int32_t *ct = (int32_t *)b->buf;
+    int8_t *st = (int8_t *)(b->buf + cells * 4);
+    uint8_t *vd = (uint8_t *)(b->buf + cells * 5);
     for (int64_t k = 0; k < links; k++)
-        memmove(ct + k * t, h->b_counter + k * h->t_cap, t * 4);
+        memmove(ct + k * t, b->counter + k * b->t_cap, t * 4);
     for (int64_t k = 0; k < links; k++)
-        memmove(st + k * t, h->b_state + k * h->t_cap, t);
+        memmove(st + k * t, b->state + k * b->t_cap, t);
     for (int64_t k = 0; k < links; k++)
-        memmove(vd + k * t, h->b_valid + k * h->t_cap, t);
-    int64_t keep = page_up(cells * 6), mapped = page_up(h->b_bytes);
-    if (mapped > keep) munmap(h->b_buf + keep, mapped - keep);
-    if (!cells) h->b_buf = NULL;
-    h->b_bytes = cells * 6;
-    h->b_counter = (int32_t *)h->b_buf;
-    h->b_state = (int8_t *)(h->b_buf + cells * 4);
-    h->b_valid = (uint8_t *)(h->b_buf + cells * 5);
-    h->links_cap = links;
-    h->t_cap = t;
+        memmove(vd + k * t, b->valid + k * b->t_cap, t);
+    int64_t keep = page_up(cells * 6), mapped = page_up(b->bytes);
+    if (mapped > keep) munmap(b->buf + keep, mapped - keep);
+    if (!cells) b->buf = NULL;
+    b->bytes = cells * 6;
+    b->counter = (int32_t *)b->buf;
+    b->state = (int8_t *)(b->buf + cells * 4);
+    b->valid = (uint8_t *)(b->buf + cells * 5);
+    b->links_cap = links;
+    b->t_cap = t;
 }
 
-/* The end of a block's walk: each cut link's ring in ts order and rebased
- * on its first kept sample, the block packed to its shape. TPUD_REREAD
- * where a cut link's counter was clipped: its rebased deltas are lost. */
+/* The end of a host's block: each cut link's ring in ts order and rebased
+ * on its first kept sample (from its raw counters where it has them: its
+ * stored deltas were clipped), the block packed to its shape. */
 static int close_block(tpud_reader *h) {
-    int64_t t = 0, m = h->max_samples;
-    for (int64_t k = 0; k < h->links.n; k++) {
-        int64_t n = h->kept[k] < m ? h->kept[k] : m;
+    tpud_block *b = h->b;
+    int64_t t = 0, m = b->max_samples;
+    for (int64_t k = 0; k < b->links.n; k++) {
+        int64_t n = b->kept[k] < m ? b->kept[k] : m, *raw = b->raw[k];
         if (n > t) t = n;
-        if (h->kept[k] > m && h->clipped[k]) return TPUD_REREAD;
-    }
-    for (int64_t k = 0; k < h->links.n; k++) {
-        if (h->kept[k] <= m) continue;
-        int8_t *s = h->b_state + k * h->t_cap;
-        int32_t *c = h->b_counter + k * h->t_cap;
-        int64_t oldest = h->kept[k] % m;
-        reverse(s, c, 0, oldest);
-        reverse(s, c, oldest, m);
-        reverse(s, c, 0, m);
-        /* the stored deltas fit int32: their differences are exact */
-        int64_t c0 = c[0];
-        for (int64_t j = 0; j < m; j++) {
-            int64_t d = (int64_t)c[j] - c0;
-            c[j] = (int32_t)(d < INT32_MIN ? INT32_MIN : d > INT32_MAX ? INT32_MAX : d);
+        if (b->kept[k] > m) {
+            int8_t *s = b->state + k * b->t_cap;
+            int32_t *c = b->counter + k * b->t_cap;
+            int64_t oldest = b->kept[k] % m;
+            reverse(s, c, 0, oldest);
+            reverse(s, c, oldest, m);
+            reverse(s, c, 0, m);
+            /* the stored deltas fit int32: their differences are exact */
+            int64_t c0 = raw ? raw[oldest] : c[0];
+            for (int64_t j = 0; j < m; j++) {
+                int64_t d = raw ? (int64_t)((uint64_t)raw[(oldest + j) % m] - (uint64_t)c0)
+                                : c[j] - c0;
+                c[j] = (int32_t)(d < INT32_MIN ? INT32_MIN : d > INT32_MAX ? INT32_MAX : d);
+            }
         }
+        release(h, raw, 0);
+        b->raw[k] = NULL;
     }
-    if (h->b_buf && (h->links_cap != h->links.n || h->t_cap != t)) pack_block(h, t);
-    h->t = t;
+    if (b->buf && (b->links_cap != b->links.n || b->t_cap != t)) pack_block(b, t);
+    b->t = t;
     return SQLITE_DONE;
 }
 
-/* Columns c0.. of the row being read; TPUD_VALUE where the caller converts. */
+/* Columns c0.. of the row being read, into the block; TPUD_VALUE where the
+ * caller converts. */
 static int fill(tpud_reader *h, int c0) {
     sqlite3_stmt *st = h->stmt;
     int64_t v;
@@ -592,9 +611,9 @@ static int fill(tpud_reader *h, int c0) {
         int type = sqlite3_column_type(st, c);
         if (c == 0 && type == SQLITE_TEXT) {
             const char *p = (const char *)sqlite3_column_text(st, 0);
-            int64_t n_links = h->links.n;
-            int64_t id = name_id(h, &h->links, p, sqlite3_column_bytes(st, 0), 1);
-            if (id < 0 || (h->block && id == n_links && add_link(h, id))) return SQLITE_NOMEM;
+            int64_t n_links = h->b->links.n;
+            int64_t id = name_id(h, &h->b->links, p, sqlite3_column_bytes(st, 0), 1);
+            if (id < 0 || (id == n_links && add_link(h, id))) return SQLITE_NOMEM;
             h->r_lid = (int32_t)id;
         } else if (c == 1 && (type == SQLITE_FLOAT || type == SQLITE_INTEGER)) {
             h->r_ts = sqlite3_column_double(st, 1);
@@ -609,13 +628,7 @@ static int fill(tpud_reader *h, int c0) {
             return TPUD_VALUE;
         }
     }
-    if (h->block) return put(h);
-    int64_t r = h->n_rows - 1;
-    h->lid[r] = h->r_lid;
-    h->ts[r] = h->r_ts;
-    h->state[r] = h->r_state;
-    h->crc[r] = h->r_crc;
-    return SQLITE_OK;
+    return put(h);
 }
 
 /* One row of the walk: SQLITE_OK where one was read, SQLITE_DONE at the
@@ -624,8 +637,6 @@ static int step(tpud_reader *h) {
     int rc = sqlite3_step(h->stmt);
     if (rc == SQLITE_DONE) return rc;
     if (rc != SQLITE_ROW) return fail(h, rc);
-    if (!h->block && h->n_rows == h->cap && resize_columns(h, 2 * h->cap))
-        return SQLITE_NOMEM;
     h->n_rows++;
     return fill(h, 0);
 }
@@ -637,12 +648,13 @@ static int walk(tpud_reader *h) {
     return rc;
 }
 
-/* A walk's code once it ended: the DB closed, a block closed too. */
+/* A walk's code once it ended: the DB closed, at the host's last DB the
+ * block closed too. */
 static int end_walk(tpud_reader *h, int rc) {
     free_dropped(h);
     if (rc != SQLITE_DONE) return rc;
     finish(h);
-    return h->block ? close_block(h) : rc;
+    return h->owns ? close_block(h) : rc;
 }
 
 static int start_walk(tpud_reader *h, const char *sql, double start) {
@@ -652,25 +664,12 @@ static int start_walk(tpud_reader *h, const char *sql, double start) {
     return SQLITE_OK;
 }
 
-int tpud_window(tpud_reader *h, const char *sql, double start, int64_t rows0) {
+/* A walk to its end on the calling thread: the links already in the block
+ * (a host's DB after its first) take this DB's floors first. */
+static int walk_here(tpud_reader *h, const char *sql, double start) {
     int rc = start_walk(h, sql, start);
-    if (rc) return rc;
-    if (resize_columns(h, rows0)) return SQLITE_NOMEM;
-    return end_walk(h, walk(h));
-}
-
-/* A block's walk prepared, its tables and block first sized for `links`
- * links of `t` samples. */
-static int start_block(tpud_reader *h, const char *sql, double start, int64_t max_samples,
-                       int64_t links, int64_t t) {
-    int rc = start_walk(h, sql, start);
-    if (rc) return rc;
-    h->block = 1;
-    h->max_samples = max_samples;
-    h->t_cap = t < max_samples ? t : max_samples;
-    if (reserve_names(h, &h->links, links, 32 * links) || reserve_links(h, links))
-        return SQLITE_NOMEM;
-    return SQLITE_OK;
+    for (int64_t k = 0; rc == SQLITE_OK && k < h->b->links.n; k++) rc = link_floor(h, k);
+    return end_walk(h, rc ? rc : walk(h));
 }
 
 /* Stores the caller's conversion of the value that stopped the walk (f for
@@ -683,58 +682,78 @@ int tpud_resume(tpud_reader *h, double f, int64_t i) {
     return end_walk(h, rc ? rc : walk(h));
 }
 
+static void free_block(tpud_block *b) {
+    if (!b) return;
+    free_names(&b->links);
+    for (int64_t k = 0; b->raw && k < b->links_cap; k++) free(b->raw[k]);
+    free(b->raw);
+    free(b->kept);
+    free(b->base);
+    free(b->floor);
+    tpud_unmap(b->buf, b->bytes);
+    free(b);
+}
+
 void tpud_close(tpud_reader *h) {
     if (!h) return;
     finish(h);
     free_dropped(h);
     free(h->errmsg);
     free_values(h->tombstones, 2 * h->n_tombstones);
-    free_names(&h->links);
     free_names(&h->floors);
-    free(h->lid);
-    free(h->ts);
-    free(h->state);
-    free(h->crc);
-    tpud_unmap(h->b_buf, h->b_bytes);
-    free(h->kept);
-    free(h->base);
-    free(h->floor);
-    free(h->clipped);
     free(h->floor_of);
+    if (h->owns) free_block(h->b);
     free(h);
 }
 
-/* The floors from the tombstone rows, as the loader computes them from a
- * dict of the rows: a link's floor is the larger of the "*" row's ts and its
- * own row's (the last row where a name repeats); a link without a row takes
- * the larger of the "*" row's and 0. A read that failed with SQLITE_ERROR
- * (Python's OperationalError, taken as no tombstones) leaves no floor.
- * Returns 0 where the rows hold what only the caller can judge: a name that
- * is not ASCII (its UTF-8 decode may fail) or a TEXT name whose ts is no
- * number; -1 out of memory. */
-static int own_floors(tpud_reader *h) {
-    int64_t n = h->tomb_rc ? 0 : h->n_tombstones;
-    double g = 0.0;
-    for (int64_t k = 0; k < n; k++) {
+/* Whether this side judges the tombstones as the loader would: the read
+ * succeeded, or failed with SQLITE_ERROR (Python's OperationalError, taken
+ * as no tombstones), and no row with a TEXT name holds a name that is not
+ * ASCII (its UTF-8 decode may fail) or a ts that is no number. */
+static int judges(const tpud_reader *h) {
+    if (h->tomb_rc) return h->tomb_rc == SQLITE_ERROR;
+    for (int64_t k = 0; k < h->n_tombstones; k++) {
         const tpud_value *name = &h->tombstones[2 * k], *ts = &name[1];
         if (name->type != SQLITE_TEXT) continue; /* matches no TEXT name */
         for (int64_t b = 0; b < name->n; b++) {
             if ((unsigned char)name->p[b] >= 0x80) return 0;
         }
         if (ts->type != SQLITE_INTEGER && ts->type != SQLITE_FLOAT) return 0;
-        if (name->n == 1 && name->p[0] == '*') g = ts->type == SQLITE_INTEGER ? ts->i : ts->f;
+    }
+    return 1;
+}
+
+/* The floors from n (link, ts) rows, each ts a number where the link is
+ * TEXT (other names match no link), as the loader computes them from a dict
+ * of the rows: a link's floor is the larger of the "*" row's ts and its own
+ * row's (the last row where a name repeats); a link without a row takes the
+ * larger of the "*" row's and 0. */
+static int set_floors(tpud_reader *h, const tpud_value *rows, int64_t n) {
+    double g = 0.0;
+    for (int64_t k = 0; k < n; k++) {
+        const tpud_value *name = &rows[2 * k], *ts = &name[1];
+        if (name->type == SQLITE_TEXT && name->n == 1 && name->p[0] == '*')
+            g = ts->type == SQLITE_INTEGER ? ts->i : ts->f;
     }
     h->floor0 = 0.0 > g ? 0.0 : g;
-    if (n && !(h->floor_of = malloc(n * sizeof *h->floor_of))) return -1;
+    if (n && !(h->floor_of = malloc(n * sizeof *h->floor_of))) return SQLITE_NOMEM;
     for (int64_t k = 0; k < n; k++) {
-        const tpud_value *name = &h->tombstones[2 * k], *ts = &name[1];
+        const tpud_value *name = &rows[2 * k], *ts = &name[1];
         if (name->type != SQLITE_TEXT) continue;
         int64_t id = name_id(h, &h->floors, name->p, name->n, 1);
-        if (id < 0) return -1;
+        if (id < 0) return SQLITE_NOMEM;
         double v = ts->type == SQLITE_INTEGER ? ts->i : ts->f;
         h->floor_of[id] = v > g ? v : g;
     }
-    return 1;
+    return SQLITE_OK;
+}
+
+/* The walk of a DB whose tombstones the caller judged, to its end:
+ * `rows`, as set_floors takes them, give the floors. */
+int tpud_walk(tpud_reader *h, const char *sql, double start, const tpud_value *rows,
+              int64_t n) {
+    if (set_floors(h, rows, n)) return SQLITE_NOMEM;
+    return walk_here(h, sql, start);
 }
 
 static double clock_s(clockid_t c) {
@@ -752,9 +771,10 @@ typedef struct tpud_job {
     const char *last_sql;   /* the largest ts and its rows' count */
     double start;
     int64_t max_samples;    /* at least 1 */
-    int64_t as_block;       /* into the block, else into columns */
-    int64_t rows0;          /* the columns' first rows */
+    int64_t first;          /* the host's first DB, whose job keeps the host's block */
+    int64_t last;           /* the host's last DB */
     /* the read's */
+    tpud_block *b;          /* a host's first DB: the block, till its last DB is taken */
     tpud_reader *h;
     int64_t opened;         /* else rc is the open's failure */
     int64_t rc;             /* the open's or the walk's code; TPUD_FLOORS */
@@ -777,29 +797,43 @@ static void last_rows(tpud_reader *h, const char *sql) {
     sqlite3_finalize(q);
 }
 
-/* Opens job i's DB and readies its walk, on the taking thread; the job's rc
- * is SQLITE_OK where a walk is to follow. A block is first sized as the
- * largest before it, where there was one. */
+/* A host's block, first sized for `links` links of `t` samples. */
+static int new_block(tpud_reader *h, int64_t max_samples, int64_t links, int64_t t) {
+    tpud_block *b = h->b = calloc(1, sizeof *b);
+    if (!b) return SQLITE_NOMEM;
+    b->max_samples = max_samples;
+    b->t_cap = t < max_samples ? t : max_samples;
+    if (reserve_names(h, &b->links, links, 32 * links) || reserve_links(h, links))
+        return SQLITE_NOMEM;
+    return SQLITE_OK;
+}
+
+/* Opens job i's DB and judges its floors, on the taking thread. A host's
+ * first DB gets its block, first sized as the largest before it where there
+ * was one, and where its floors are judged here its walk is readied for a
+ * worker: the job's rc is SQLITE_OK. A DB after its host's first takes the
+ * host's block; it is walked when taken. */
 static void open_job(tpud_pool *p, int64_t i) {
     tpud_job *j = &p->jobs[i];
     double w0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
     int rc = tpud_open(j->uri, j->tombstone_sql, &j->h);
+    tpud_reader *h = j->h;
     j->opened = rc == SQLITE_OK;
-    if (rc == SQLITE_OK && j->h->tomb_rc && j->h->tomb_rc != SQLITE_ERROR) rc = TPUD_FLOORS;
-    if (rc == SQLITE_OK && j->as_block) {
-        int own = own_floors(j->h);
-        rc = own < 0 ? SQLITE_NOMEM : own ? SQLITE_OK : TPUD_FLOORS;
-    }
-    if (rc == SQLITE_OK) {
+    if (rc == SQLITE_OK)
+        rc = !judges(h) ? TPUD_FLOORS : set_floors(h, h->tombstones, h->tomb_rc ? 0 : h->n_tombstones);
+    if (j->opened && j->first != i) {
+        h->b = p->jobs[j->first].b;
+    } else if (rc == SQLITE_OK || rc == TPUD_FLOORS) {
         pthread_mutex_lock(&p->mu);
         int64_t links = p->links_hint ? p->links_hint : 256, t = p->t_hint ? p->t_hint : 64;
         pthread_mutex_unlock(&p->mu);
-        rc = j->as_block ? start_block(j->h, j->sql, j->start, j->max_samples, links, t)
-                         : start_walk(j->h, j->sql, j->start);
-        if (rc == SQLITE_OK && !j->as_block && resize_columns(j->h, j->rows0)) rc = SQLITE_NOMEM;
-        /* the first row here: SQLite allocates the walk's cursors in it */
-        if (rc == SQLITE_OK) rc = step(j->h);
-        if (rc == SQLITE_OK) last_rows(j->h, j->last_sql);
+        int made = new_block(h, j->max_samples, links, t);
+        j->b = h->b;
+        if (made != SQLITE_OK) rc = made;
+        else if (rc == SQLITE_OK && (rc = start_walk(h, j->sql, j->start)) == SQLITE_OK) {
+            /* the first row here: SQLite allocates the walk's cursors in it */
+            if ((rc = step(h)) == SQLITE_OK) last_rows(h, j->last_sql);
+        }
     }
     j->rc = rc;
     j->open_s = clock_s(CLOCK_MONOTONIC) - w0;
@@ -811,7 +845,7 @@ static void open_job(tpud_pool *p, int64_t i) {
  * the taking thread's (tpud_pool_take). */
 static void walk_job(tpud_pool *p, int64_t i, int worker) {
     tpud_job *j = &p->jobs[i];
-    if (j->rc != SQLITE_OK) return;
+    if (j->rc != SQLITE_OK || j->first != i) return;
     tpud_reader *h = j->h;
     double w0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
     h->pool = worker ? p : NULL;
@@ -903,7 +937,9 @@ int64_t tpud_pool_threads(tpud_pool *p) {
 }
 
 /* Job i, the one after the last taken, once read; the jobs up to a window
- * ahead of it are opened first. Its handle is the caller's from here. */
+ * ahead of it are opened first. A DB after its host's first is walked here.
+ * Its handle is the caller's from here, and at the host's last DB the
+ * host's block with it. */
 void tpud_pool_take(tpud_pool *p, int64_t i) {
     while (p->opened < p->n && p->opened < i + p->window) {
         open_job(p, p->opened);
@@ -913,6 +949,7 @@ void tpud_pool_take(tpud_pool *p, int64_t i) {
         pthread_mutex_unlock(&p->mu);
     }
     tpud_job *j = &p->jobs[i];
+    tpud_reader *h = j->h;
     if (!p->n_threads) {
         walk_job(p, i, 0);
         p->done[i] = 1;
@@ -926,22 +963,34 @@ void tpud_pool_take(tpud_pool *p, int64_t i) {
     p->taken = i + 1;
     pthread_mutex_unlock(&p->mu);
     j->wait_s = p->n_threads ? clock_s(CLOCK_MONOTONIC) - w0 : 0.0;
+    if (j->last) {
+        tpud_job *f = &p->jobs[j->first];
+        if (h) {
+            h->b = f->b;
+            h->owns = 1;
+        } else {
+            free_block(f->b);
+        }
+        f->b = NULL;
+    }
     if (j->opened) {
         double e0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
-        j->rc = end_walk(j->h, j->rc == SQLITE_OK ? walk(j->h) : (int)j->rc);
+        j->rc = j->rc == SQLITE_OK && j->first != i ? walk_here(h, j->sql, j->start)
+                : end_walk(h, j->rc == SQLITE_OK ? walk(h) : (int)j->rc);
         j->fetch_s += clock_s(CLOCK_MONOTONIC) - e0;
         j->cpu_s += clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
-        if (j->rc == SQLITE_DONE && j->as_block) {
+        if (j->rc == SQLITE_DONE && h->owns) {
             pthread_mutex_lock(&p->mu);
-            if (j->h->links.n > p->links_hint) p->links_hint = j->h->links.n;
-            if (j->h->t > p->t_hint) p->t_hint = j->h->t;
+            if (h->b->links.n > p->links_hint) p->links_hint = h->b->links.n;
+            if (h->b->t > p->t_hint) p->t_hint = h->b->t;
             pthread_mutex_unlock(&p->mu);
         }
     }
 }
 
 /* Walks no more jobs, waits for the walks running (giving the memory they
- * ask for), and closes the handles of the jobs not taken. */
+ * ask for), and closes the handles of the jobs not taken and the blocks of
+ * the hosts whose last DB was not taken. */
 void tpud_pool_stop(tpud_pool *p) {
     pthread_mutex_lock(&p->mu);
     p->stop = 1;
@@ -952,9 +1001,13 @@ void tpud_pool_stop(tpud_pool *p) {
     }
     pthread_mutex_unlock(&p->mu);
     for (int64_t k = 0; k < p->n_threads; k++) pthread_join(p->threads[k], NULL);
-    for (int64_t i = p->taken; i < p->n; i++) {
-        tpud_close(p->jobs[i].h);
-        p->jobs[i].h = NULL;
+    for (int64_t i = 0; i < p->n; i++) {
+        if (i >= p->taken) {
+            tpud_close(p->jobs[i].h);
+            p->jobs[i].h = NULL;
+        }
+        free_block(p->jobs[i].b);
+        p->jobs[i].b = NULL;
     }
     free_pool(p);
 }

@@ -25,8 +25,7 @@ component ``"fleet_scan"``), one per layer and none per DB or row:
       fleet_scan.load                dbs, rows_fetched, rows_tombstoned,
                                      rows_kept, open_s, fetch_s,
                                      slowest_db, slowest_db_s, workers,
-                                     dbs_block, dbs_columns, wait_s,
-                                     read_cpu_s
+                                     wait_s, read_cpu_s
         fleet_scan.pack              links, t_max, truncated
       fleet_scan.split               devices, h2d_bytes
         fleet_scan.h2d               bytes        } once per device
@@ -44,9 +43,7 @@ from __future__ import annotations
 
 import logging
 import os
-import sqlite3
 import time
-from collections import Counter
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 from urllib.parse import quote
@@ -58,12 +55,9 @@ from gpud_tpu_torch import tracing
 from gpud_tpu_torch.device import DeviceLike, resolve_device
 from gpud_tpu_torch.ops.packed_scan import packed_from_numpy, scan_links_packed
 from gpud_tpu_torch.ops.window_scan import classify_links
-from gpud_tpu_torch.snapshot_reader import FLOORS, Block, Read, Reads, SnapshotDB
+from gpud_tpu_torch.snapshot_reader import TABLE, TOMBSTONE_TABLE, Block, Reads  # noqa: F401
 
 logger = logging.getLogger(__name__)
-
-TABLE = "tpud_ici_snapshots_v0_1"  # the schema of components/gpu/nvlink_store.py
-TOMBSTONE_TABLE = "tpud_ici_tombstones_v0_1"
 
 DEFAULT_WINDOW_SECONDS = 3600.0
 # dense-array bound: 14 days of minutes; a denser link keeps its latest
@@ -73,16 +67,6 @@ MAX_STEPS = 20160
 CLASS_NAMES = ("healthy", "degraded", "unhealthy")
 
 COMPONENT = "fleet_scan"  # the spans' component in the trace ring
-
-# one query a DB: it walks only the window's entries of the (ts) index, in a
-# total order (ties by rowid, as the (link, ts) index orders them), so each
-# link's rows come in ts order whatever depth the DB stores. The native
-# reader (snapshot_reader.py) steps its rows straight into the host's block
-QUERY = (f"SELECT link, ts, state, crc_errors FROM {TABLE} "
-         "WHERE ts>=? ORDER BY ts, rowid")
-TOMBSTONE_QUERY = f"SELECT link, ts FROM {TOMBSTONE_TABLE}"
-# the window's last rows, which end QUERY's walk: the largest ts and its rows
-LAST_QUERY = f"SELECT ts, count(*) FROM {TABLE} WHERE ts=(SELECT max(ts) FROM {TABLE})"
 
 
 @contextmanager
@@ -98,47 +82,9 @@ def _span(name: str, attrs: Optional[Dict] = None):
             yield sp
 
 
-class _LinkIds(dict):
-    """A host's link names → ids, numbered in the order first fetched
-    (over its DBs, where the host has more than one)."""
-
-    def __missing__(self, link):
-        self[link] = n = len(self)
-        return n
-
-
-def _host_block(lid: np.ndarray, state: np.ndarray, crc: np.ndarray, n_ids: int,
-                max_samples: int):
-    """One host's kept rows (link id, state, CRC; each link's in order) as a
-    left-aligned block: each link with rows, in id order, cut to its latest
-    ``max_samples`` and its counter rebased on its first kept sample. Returns
-    (ids, states, counters, valid, cut) with [l_h, t_h] int8, int32 and bool
-    arrays and the ids of the links cut."""
-    counts = np.bincount(lid, minlength=n_ids)
-    ids = np.flatnonzero(counts)
-    counts = counts[ids]
-    n = np.minimum(counts, max_samples)
-    # the stable sort groups the links and keeps each link's order; on keys
-    # of 16 bits or fewer NumPy sorts by radix
-    order = np.argsort(lid.astype(np.min_scalar_type(n_ids)), kind="stable")
-    # a cut link's oldest rows lead its group: keep the last n of each
-    order = order[np.arange(len(order)) >= np.repeat(np.cumsum(counts) - n, counts)]
-    crc = crc[order]
-    base = np.repeat(crc[np.cumsum(n) - n], n)
-    valid = np.arange(n.max(initial=0)) < n[:, None]
-    states = np.zeros(valid.shape, np.int8)
-    counters = np.zeros(valid.shape, np.int32)
-    # a boolean mask fills row by row, which is the grouped rows' order.
-    # Rebased on the first sample, deltas are unchanged and the values stay
-    # in int32
-    states[valid] = state[order]
-    counters[valid] = np.clip(crc - base, -(2**31), 2**31 - 1)
-    return ids, states, counters, valid, ids[counts > n]
-
-
 class _FleetArrays:
     """The fleet's [L, T] int8 / int32 / bool arrays, each host's block
-    copied in as its DB is taken, so the blocks are never all held beside
+    copied in as its last DB is taken, so the blocks are never all held beside
     the fleet's arrays. Rows are added as hosts bring them, sized for the
     rows a host brought so far times the hosts, at least doubling; a wider
     block widens the arrays. Either copies the rows so far."""
@@ -179,55 +125,26 @@ class _FleetArrays:
         return tuple(a[:n_rows] for a in self.arrays)
 
 
-def _finish(read: Read, uri: str, start: float, max_samples: int, as_block: bool):
-    """The part of one DB's read that only Python does, on the sweeping
-    thread: a value to convert; the columns of a DB whose tombstones only
-    Python judges, or whose block the native side cannot make exactly; a
-    failure raises here, in DB order. Returns the DB's Block, or its
-    (tombstones, link names, columns); and the seconds this took in the
-    open's part (the tombstones) and in the walk's."""
-    t0 = time.perf_counter()
-    with read.db as db:
-        tombstones = {}
-        if read.rc == FLOORS or not as_block:
-            try:
-                tombstones = db.tombstones()
-            except sqlite3.OperationalError:
-                pass  # older DB without the table
-        t1 = time.perf_counter()
-        got = db.window(QUERY, start) if read.rc == FLOORS else db.finish(read.rc)
-    if got is None:  # a cut link's counter left int32 first: its columns
-        with SnapshotDB(uri, TOMBSTONE_QUERY) as db:
-            try:
-                tombstones = db.tombstones()
-            except sqlite3.OperationalError:
-                pass
-            got = db.window(QUERY, start)
-    if not isinstance(got, Block):
-        got = (tombstones, *got)
-    return got, t1 - t0, time.perf_counter() - t1
+def _number_rows(row_of: Dict[str, int], host: str, links: List[str]) -> None:
+    """Fleet rows for a DB's links with kept samples, in name order, as
+    ORDER BY link gave them: SQLite's BINARY collation of UTF-8 is code-point
+    order. A row once taken is kept."""
+    for link in sorted(links):
+        row_of.setdefault(f"{host}/{link}", len(row_of))
 
 
-def _number_rows(row_of: Dict[str, int], host: str, links: List[str], ids) -> None:
-    """Fleet rows for a DB's links with kept samples (``ids`` into
-    ``links``), in name order, as ORDER BY link gave them: SQLite's BINARY
-    collation of UTF-8 is code-point order. A row once taken is kept."""
-    for k in sorted(ids, key=links.__getitem__):
-        row_of.setdefault(f"{host}/{links[k]}", len(row_of))
-
-
-def _place_block(row_of: Dict[str, int], host: str, block, max_samples: int):
-    """A host's block (one DB's) as the fleet's arrays take it: the fleet
-    rows of its links with kept samples, their rows of the block, and the
-    fleet rows of the links cut to ``max_samples``."""
+def _place_block(fleet: _FleetArrays, row_of: Dict[str, int], host: str, block: Block,
+                 max_samples: int) -> List[int]:
+    """Copy a host's block into the fleet's arrays at the fleet rows of its
+    links with kept samples; return the fleet rows of the links cut to
+    ``max_samples``."""
     ids = np.flatnonzero(block.kept)
-    _number_rows(row_of, host, block.names, ids.tolist())
     arrays = (block.states, block.counters, block.valid)
     if len(ids) < len(block.names):  # a link whose samples a floor all dropped
         arrays = tuple(a[ids] for a in arrays)
     rows = np.array([row_of[f"{host}/{block.names[k]}"] for k in ids], np.intp)
-    cut = [row_of[f"{host}/{block.names[k]}"] for k in np.flatnonzero(block.kept > max_samples)]
-    return rows, arrays, cut
+    fleet.place(rows, arrays, len(row_of))
+    return [row_of[f"{host}/{block.names[k]}"] for k in np.flatnonzero(block.kept > max_samples)]
 
 
 def load_fleet_history(
@@ -246,22 +163,21 @@ def load_fleet_history(
     ``truncated``, never silently.
 
     The DBs are read side by side by the native reader
-    (snapshot_reader.py), one a worker thread, as many workers as this
-    process may use cores (none for one DB: it is read inline), and taken
-    in DB order, so the output and the first failure are those of a read
-    one DB at a time. A worker walks a DB's window straight into the host's
-    block. A host spread over several DBs, or a DB whose block the reader
-    cannot make exactly, is read into columns instead and packed here with
-    array operations. Each block is copied into the fleet's arrays as its
-    DB is taken, and let go.
+    (snapshot_reader.py), as many worker threads as this process may use
+    cores (none for one DB: it is read inline), and taken in DB order, so
+    the output and the first failure are those of a read one DB at a time.
+    Each DB's window is walked straight into its host's block; a host spread
+    over several DBs (a DB whose stem is another's disambiguated name)
+    continues one block over them. At each DB its links with kept samples
+    take their fleet rows; at the host's last DB the block is copied into
+    the fleet's arrays, and let go.
 
     Recorded as the ``fleet_scan.load`` span: rows fetched from SQLite,
     dropped by set-healthy tombstones and kept; seconds in the opens (open
     and tombstone read) and in the reader's window walk, summed over the
     DBs, which overlap; the DB that took longest, from its open to the end
-    of its array work; the workers (0 inline), the DBs read into blocks and
-    into columns, the seconds this thread waited on the workers and the
-    reads' thread CPU seconds, summed.
+    of its array work; the workers (0 inline), the seconds this thread
+    waited on the workers and the reads' thread CPU seconds, summed.
     """
     t_now = now if now is not None else time.time()
     start = t_now - window_seconds
@@ -274,73 +190,37 @@ def load_fleet_history(
         n_seen = used_hosts.get(host, 0)
         used_hosts[host] = n_seen + 1
         hosts.append(f"{host}-{n_seen + 1}" if n_seen else host)
-    # a DB whose own stem is another's disambiguated name shares its host:
-    # its rows join that host's links, after the earlier DB's
-    last_db = {host: i for i, host in enumerate(hosts)}
-    n_dbs = Counter(hosts)
     # read-only URIs; a path is escaped because '?', '#' or '%' would
     # otherwise be parsed as URI syntax
     uris = [f"file:{quote(os.path.abspath(path))}?mode=ro" for path in db_paths]
-    # a host of one DB is read straight into its block
-    as_block = [n_dbs[host] == 1 and max_samples >= 1 for host in hosts]
     workers = min(len(os.sched_getaffinity(0)), len(db_paths))
 
     row_of: Dict[str, int] = {}  # name → fleet row, in the order first kept
-    pending: Dict[str, tuple] = {}  # host → (link ids, kept rows so far)
-    fleet = _FleetArrays(len(last_db))
+    # a DB whose own stem is another's disambiguated name shares its host:
+    # its rows join that host's links, after the earlier DB's
+    fleet = _FleetArrays(len(set(hosts)))
     cut_rows: List[int] = []
-    fetched = tombstoned = n_block = 0
+    fetched = tombstoned = 0
     open_s = fetch_s = read_cpu_s = wait_s = slowest_s = 0.0
     slowest = ""
     with _span("fleet_scan.load") as sp:
-        with Reads(uris, as_block, TOMBSTONE_QUERY, QUERY, LAST_QUERY, start, max_samples,
-                   workers) as reads:
+        with Reads(uris, hosts, start, max_samples, workers) as reads:
             for i, host in enumerate(hosts):
                 read = reads.take(i)
+                t_rest = time.perf_counter()
+                fetched += read.fetched
+                tombstoned += read.tombstoned
+                open_s += read.open_s
+                fetch_s += read.fetch_s
+                read_cpu_s += read.cpu_s
                 wait_s += read.wait_s
-                t_rest, cpu_rest = time.perf_counter(), time.thread_time()
-                got, open_rest, fetch_rest = _finish(read, uris[i], start, max_samples,
-                                                     as_block[i])
-                open_s += read.open_s + open_rest
-                fetch_s += read.fetch_s + fetch_rest
-                read_cpu_s += read.cpu_s + time.thread_time() - cpu_rest
-                if isinstance(got, Block):
-                    n_block += 1
-                    fetched += got.fetched
-                    tombstoned += got.tombstoned
-                    b_rows, arrays, cut = _place_block(row_of, host, got, max_samples)
-                    fleet.place(b_rows, arrays, len(row_of))
-                    cut_rows += cut
-                    del got, arrays  # the block's pages go back now
-                else:
-                    ids, kept = pending.pop(host, None) or (_LinkIds(), [])
-                    tombstones, db_links, (lid, ts, state, crc) = got
-                    global_ts = tombstones.get("*", 0.0)
-                    # the DB numbers its links from 0: renumber them among the host's
-                    lid = np.array([ids[link] for link in db_links], np.int32)[lid]
-                    fetched += len(lid)
-                    # honour set-healthy exactly like ICIStore.scan
-                    links = list(ids)
-                    floor = np.array([max(global_ts, tombstones.get(link, 0.0))
-                                      for link in links])
-                    keep = ts >= floor[lid]
-                    lid, state, crc = lid[keep], state[keep], crc[keep]
-                    tombstoned += len(keep) - len(lid)
-                    kept.append((lid, state, crc))
-                    _number_rows(row_of, host, links,
-                                 np.flatnonzero(np.bincount(lid, minlength=len(links))).tolist())
-                    if last_db[host] == i:
-                        b_ids, *arrays, cut = _host_block(
-                            *(np.concatenate(col) for col in zip(*kept)), len(links),
-                            max_samples)
-                        fleet.place(np.array([row_of[f"{host}/{links[k]}"] for k in b_ids],
-                                             np.intp), arrays, len(row_of))
-                        cut_rows += [row_of[f"{host}/{links[k]}"] for k in cut]
-                    else:
-                        pending[host] = (ids, kept)
+                _number_rows(row_of, host, read.links)
+                if read.block is not None:
+                    cut_rows += _place_block(fleet, row_of, host, read.block, max_samples)
                 db_s = read.open_s + read.fetch_s + time.perf_counter() - t_rest
                 if db_s > slowest_s:
                     slowest, slowest_s = host, db_s
+                del read  # the block's pages go back now
             n_workers = reads.workers
 
         with _span("fleet_scan.pack") as pk:
@@ -362,9 +242,8 @@ def load_fleet_history(
                            ("rows_kept", fetched - tombstoned), ("open_s", open_s),
                            ("fetch_s", fetch_s), ("slowest_db", slowest),
                            ("slowest_db_s", slowest_s),
-                           ("workers", n_workers),
-                           ("dbs_block", n_block), ("dbs_columns", len(db_paths) - n_block),
-                           ("wait_s", wait_s), ("read_cpu_s", read_cpu_s)):
+                           ("workers", n_workers), ("wait_s", wait_s),
+                           ("read_cpu_s", read_cpu_s)):
             sp.set_attr(key, value)
     return names, states, counters, valid, truncated
 

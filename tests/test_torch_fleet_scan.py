@@ -254,12 +254,29 @@ def _truncated_after_a_merge(tmp_path):
             dict(window_seconds=3600, now=NOW, max_samples=7))
 
 
+def _clipped_cut_over_two_dbs(tmp_path):
+    # host-2.db continues rack2/host.db's host: l0's counter leaves int32
+    # against its first sample in the first DB and the second DB cuts it; each
+    # DB's tombstones hold for its own rows alone
+    for rack in ("rack1", "rack2"):
+        (tmp_path / rack).mkdir()
+    first = [(NOW - 1200 + 60 * i, link, 1, c) for i in range(6) for link, c in (
+        ("l0", 0 if i == 0 else 2**40 + 5 * i), ("l1", 3 * i))]
+    second = [(NOW - 600 + 60 * i, link, int(i % 3 != 1), c) for i in range(5) for link, c in (
+        ("l0", 2**40 + 100 + 9 * i), ("l1", 40 + i))]
+    return ([_raw_db(tmp_path / "rack1" / "host.db", _history(["m0"], minutes=3, seed=20)),
+             _raw_db(tmp_path / "rack2" / "host.db", first, tombstones=[("l1", NOW - 1100)]),
+             _raw_db(tmp_path / "host-2.db", second, tombstones=[("*", NOW - 500)])],
+            dict(window_seconds=3600, now=NOW, max_samples=5))
+
+
 # cases of the loader alone: they pass it max_samples, or hold counters whose
 # steps overflow the reference's int32 scan (ROADMAP C18)
 LOADER_ONLY = {
     "crc_past_int32": _crc_past_int32,
     "truncated_and_rebased": _truncated,
     "truncated_after_a_merge": _truncated_after_a_merge,
+    "clipped_cut_over_two_dbs": _clipped_cut_over_two_dbs,
 }
 
 

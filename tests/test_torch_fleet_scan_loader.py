@@ -4,7 +4,8 @@ window on the ``(ts)`` index whatever depth the DB holds, it holds no
 Python object per row (its arrays equal the reference's in
 tests/test_torch_fleet_scan.py), and its native reader
 (gpud_tpu_torch/snapshot_reader.py) reads what a plain ``sqlite3`` reader
-reads and raises what it raised."""
+reads, walks each DB into the block the reference loader packs, and raises
+what they raised."""
 
 import json
 import os
@@ -22,6 +23,8 @@ from urllib.parse import quote
 import numpy as np
 import pytest
 
+from gpud_tpu import fleet_scan as jax_fs
+
 from gpud_tpu_torch import fleet_scan as torch_fs
 from gpud_tpu_torch import snapshot_reader
 from gpud_tpu_torch.components.gpu.nvlink_store import NVLinkStore
@@ -32,7 +35,7 @@ from gpud_tpu_torch.tracing import DEFAULT_TRACER
 NOW = 1_700_000_000.0
 TABLE = torch_fs.TABLE
 REPO = Path(__file__).resolve().parent.parent
-TOMBSTONE_QUERY = f"SELECT link, ts FROM {torch_fs.TOMBSTONE_TABLE}"
+QUERY, TOMBSTONE_QUERY = snapshot_reader.QUERY, snapshot_reader.TOMBSTONE_QUERY
 
 
 def _host_db(path, links, minutes, seed=0):
@@ -61,7 +64,7 @@ def test_query_walks_only_the_window_on_the_ts_index(tmp_path, analyzed):
     try:
         if analyzed:
             conn.execute("ANALYZE")
-        plan = [row[-1] for row in conn.execute("EXPLAIN QUERY PLAN " + torch_fs.QUERY,
+        plan = [row[-1] for row in conn.execute("EXPLAIN QUERY PLAN " + QUERY,
                                                 (NOW - 3600,))]
     finally:
         conn.close()
@@ -213,7 +216,7 @@ def _oracle(path, start):
             tombstones = dict(conn.execute(TOMBSTONE_QUERY))
         except sqlite3.Error as e:
             tombstones = (type(e), str(e))
-        rows = conn.execute(torch_fs.QUERY, (start,)).fetchall()
+        rows = conn.execute(QUERY, (start,)).fetchall()
     finally:
         conn.close()
     ids = {}
@@ -224,15 +227,16 @@ def _oracle(path, start):
         for k, dtype in ((1, np.float64), (2, np.int8), (3, np.int64))]
 
 
-def _read(path, start):
-    """The same through the native reader."""
-    with snapshot_reader.SnapshotDB(_uri(path), TOMBSTONE_QUERY) as db:
+def _read(path, start, max_samples=torch_fs.MAX_STEPS):
+    """The same through the native reader: the tombstones, and the DB's
+    :class:`snapshot_reader.Read`, its block walked on this thread."""
+    with snapshot_reader.SnapshotDB(_uri(path)) as db:
         try:
             tombstones = db.tombstones()
         except sqlite3.Error as e:
             tombstones = (type(e), str(e))
-        names, columns = db.window(torch_fs.QUERY, start)
-    return tombstones, names, list(columns)
+    with snapshot_reader.Reads([_uri(path)], ["h"], start, max_samples, 0) as reads:
+        return tombstones, reads.take(0)
 
 
 def _seeded(tmp_path):
@@ -304,11 +308,9 @@ def test_the_reader_reads_what_sqlite3_reads(tmp_path, make):
     path = make(tmp_path)
     start = NOW - 3600
     want_tombstones, want_names, want = _oracle(path, start)
-    tombstones, names, got = _read(path, start)
-    assert tombstones == want_tombstones and names == want_names
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and np.array_equal(g, w)
-        assert g.base is None or g.base.nbytes == g.nbytes  # exactly the rows, owned
+    tombstones, read = _read(path, start)
+    assert tombstones == want_tombstones and read.block.names == want_names
+    assert read.fetched == len(want[0])
     if make is _no_tombstone_table:
         assert tombstones == (sqlite3.OperationalError,
                               f"no such table: {torch_fs.TOMBSTONE_TABLE}")
@@ -414,7 +416,7 @@ def _duplicate_stems(i):
 
 def _two_db_host(i):
     # an odd DB takes the name that the next h.db is given: the two share a
-    # host, read into columns, the odd one's links first
+    # host, one block over both, the odd one's links first
     return "h" if i % 2 == 0 else f"h-{i // 2 + 2}"
 
 
@@ -463,17 +465,8 @@ def test_workers_load_what_the_inline_read_loads(tmp_path, templates, monkeypatc
     got, attrs = _load(paths, monkeypatch, W, max_samples=max_samples)
     _assert_same_load(got, want)
     assert inline["workers"] == "0" and attrs["workers"] == str(min(W, n) if n > 1 else 0)
-    assert {k: attrs[k] for k in ("rows_fetched", "rows_tombstoned", "dbs_block",
-                                  "dbs_columns")} == {
-        k: inline[k] for k in ("rows_fetched", "rows_tombstoned", "dbs_block", "dbs_columns")}
-    # a host over two DBs is read into columns, both its DBs; so is a DB with
-    # a link cut whose counter left int32 first (_values_to_convert's)
-    names = [m.__name__ for m in DATA_MAKERS]
-    columns = {j for i in range(1, n - 1, 2) for j in (i, i + 1)} if stem is _two_db_host else set()
-    columns |= {i for i in range(n) if max_samples == 2 and names[
-        (names.index(first) + i) % len(names)] == "_values_to_convert"}
-    assert (attrs["dbs_block"], attrs["dbs_columns"]) == (str(n - len(columns)),
-                                                          str(len(columns)))
+    assert {k: attrs[k] for k in ("rows_fetched", "rows_tombstoned", "rows_kept")} == {
+        k: inline[k] for k in ("rows_fetched", "rows_tombstoned", "rows_kept")}
 
 
 def _readers():
@@ -533,59 +526,92 @@ def test_a_failing_db_raises_as_it_did_and_leaves_nothing_running(
     assert _readers() == [] and _db_fds(paths) == []
 
 
-def _columns_block(path, start, max_samples):
-    """The column path's block of one DB: its columns, the tombstone floor
-    applied and packed by ``_host_block``, as the loader does."""
-    tombstones, names, (lid, ts, state, crc) = _read(path, start)
-    if not isinstance(tombstones, dict):
-        tombstones = {}
-    global_ts = tombstones.get("*", 0.0)
-    floor = np.array([max(global_ts, tombstones.get(link, 0.0)) for link in names])
-    keep = ts >= floor[lid] if len(names) else np.zeros(0, bool)
-    ids, *arrays, cut = torch_fs._host_block(lid[keep], state[keep], crc[keep], len(names),
-                                            max_samples)
-    return names, ids, arrays, cut, len(lid), len(lid) - int(keep.sum())
+def _clipped_cut(tmp_path):
+    # counters that leave int32 against a link's first sample: before the
+    # cut (l0), among the kept samples (l1), on a link of two samples (l2)
+    rows = []
+    for i in range(40):
+        rows.append((NOW - 3000 + 60 * i, "l0", i % 2, 0 if i == 0 else 2**40 + 7 * i))
+        rows.append((NOW - 2999 + 60 * i, "l1", 1, 3 * i + (2**35 if i % 3 == 2 else 0)))
+    rows += [(NOW - 100, "l2", 1, -(2**40)), (NOW - 50, "l2", 0, 5)]
+    return _loose_db(tmp_path / "h.db", rows)
 
 
-def _block(path, start, max_samples):
-    """One DB's block as the loader's native read makes it."""
-    with snapshot_reader.Reads([_uri(path)], [True], TOMBSTONE_QUERY, torch_fs.QUERY,
-                               torch_fs.LAST_QUERY, start, max_samples, 1) as reads:
-        read = reads.take(0)
-        with read.db as db:
-            assert read.rc != snapshot_reader.FLOORS
-            return db.finish(read.rc)
+def _reference_block(path, start, max_samples, make):
+    """Each link's kept (states, counters), by name, and the names cut: the
+    reference loader's, or where only NumPy's conversion reads the values
+    (_values_to_convert, which has no tombstones) _oracle's columns, each
+    link's latest ``max_samples`` rebased on the first as NumPy does."""
+    if make is _values_to_convert:
+        _t, names, (lid, _ts, state, crc) = _oracle(path, start)
+        rows = [np.flatnonzero(lid == k) for k in range(len(names))]
+        return ({name: (state[r[-max_samples:]],
+                        np.clip(crc[r[-max_samples:]] - crc[r[-max_samples:]][0],
+                                -(2**31), 2**31 - 1).astype(np.int32))
+                 for name, r in zip(names, rows)},
+                {name for name, r in zip(names, rows) if len(r) > max_samples})
+    host = os.path.splitext(os.path.basename(path))[0]
+    names, states, counters, valid, cut = jax_fs.load_fleet_history(
+        [path], window_seconds=NOW - start, now=NOW, max_samples=max_samples)
+    return ({name[len(host) + 1:]: (s[v], c[v])
+             for name, s, c, v in zip(names, states, counters, valid)},
+            {name[len(host) + 1:] for name in cut})
 
 
 @pytest.mark.parametrize("max_samples", [torch_fs.MAX_STEPS, 30, 2, 1])
-@pytest.mark.parametrize("make", DATA_MAKERS + [_uri_syntax_in_the_path])
+@pytest.mark.parametrize("make", DATA_MAKERS + [_uri_syntax_in_the_path, _clipped_cut])
 def test_the_block_call_gives_the_column_path_s_block(tmp_path, make, max_samples):
+    # one DB's block, its links in the order first fetched, against the
+    # reference's arrays of the same DB
     path = make(tmp_path)
     start = NOW - 3600
-    names, ids, arrays, cut, fetched, dropped = _columns_block(path, start, max_samples)
-    block = _block(path, start, max_samples)
-    if block is None:  # only where a cut link's counter left int32 first
-        assert make is _values_to_convert and max_samples < 4
-        return
-    assert block.names == names and (block.fetched, block.tombstoned) == (fetched, dropped)
-    assert np.array_equal(np.flatnonzero(block.kept), ids)
-    assert np.array_equal(np.flatnonzero(block.kept > max_samples), cut)
-    for got, want in zip((block.states, block.counters, block.valid), arrays):
-        assert got.dtype == want.dtype and np.array_equal(got[ids], want)
-        assert not got[np.flatnonzero(block.kept == 0)].any()
-    assert block.states.shape[1] == arrays[0].shape[1]
+    want, want_cut = _reference_block(path, start, max_samples, make)
+    _tombstones, names, (lid, *_columns) = _oracle(path, start)
+    read = _read(path, start, max_samples)[1]
+    block = read.block
+    assert block.names == names and read.links == [names[k] for k in np.flatnonzero(block.kept)]
+    assert (read.fetched, read.tombstoned) == (len(lid), len(lid) - int(block.kept.sum()))
+    assert set(read.links) == set(want)
+    assert {names[k] for k in np.flatnonzero(block.kept > max_samples)} == want_cut
+    assert block.states.dtype == np.int8 and block.counters.dtype == np.int32
+    assert block.states.shape[1] == max((len(s) for s, _c in want.values()), default=0)
+    for k, name in enumerate(names):
+        n = min(int(block.kept[k]), max_samples)
+        assert block.valid[k].tolist() == [True] * n + [False] * (block.valid.shape[1] - n)
+        got = (block.states[k, :n], block.counters[k, :n])
+        assert all(np.array_equal(g, w) for g, w in zip(got, want.get(name, ((), ())))), name
+        assert not block.states[k, n:].any() and not block.counters[k, n:].any()
 
 
-def test_a_tombstone_that_is_no_number_takes_the_column_path(tmp_path, monkeypatch):
-    # a TEXT floor on a link without rows: the columns' arithmetic, as before
+@pytest.mark.parametrize("link, exc", [("gone", None), ("gpu1/nvlink4", TypeError)])
+def test_a_tombstone_that_is_no_number_is_still_walked_into_a_block(tmp_path, monkeypatch,
+                                                                     link, exc):
+    # a TEXT floor: the tombstones are judged in Python and the DB walked
+    # into its block as any other. On a link without rows it changes
+    # nothing; on a link with rows it raises after the walk what the
+    # loader's floor expression raises
     path = _seeded(tmp_path)
+    other = _host_db(tmp_path / "g.db", 18, 90)
+    want, _attrs = _load([path, other], monkeypatch, W)
     conn = sqlite3.connect(path)
-    conn.execute(f"INSERT INTO {torch_fs.TOMBSTONE_TABLE} (link, ts) VALUES ('gone', 'abc')")
+    conn.execute(f"INSERT OR REPLACE INTO {torch_fs.TOMBSTONE_TABLE} (link, ts) "
+                 "VALUES (?, 'abc')", (link,))
     conn.commit()
     conn.close()
-    got, attrs = _load([path, _host_db(tmp_path / "g.db", 18, 90)], monkeypatch, W)
-    assert (attrs["dbs_block"], attrs["dbs_columns"]) == ("1", "1")
-    assert len(got[0]) == 36 + 18 and got[4] == []
+    if exc is None:
+        got, _attrs = _load([path, other], monkeypatch, W)
+        _assert_same_load(got, want)
+        assert len(got[0]) == 36 + 18 and got[4] == []
+        return
+    with pytest.raises(exc) as err:
+        _load([path, other], monkeypatch, W)
+    assert str(err.value) == "'>' not supported between instances of 'str' and 'float'"
+
+
+def test_max_samples_below_one_raises_before_any_db_is_opened(tmp_path):
+    with pytest.raises(ValueError, match="max_samples must be at least 1, not 0"):
+        torch_fs.load_fleet_history([str(tmp_path / "missing.db")], 3600, now=NOW,
+                                    max_samples=0)
 
 
 def test_workers_grow_blocks_past_their_first_size(tmp_path, monkeypatch):
@@ -599,7 +625,7 @@ def test_workers_grow_blocks_past_their_first_size(tmp_path, monkeypatch):
     want, _inline = _load(paths, monkeypatch, 1, window=150 * 60)
     got, attrs = _load(paths, monkeypatch, W, window=150 * 60)
     _assert_same_load(got, want)
-    assert attrs["workers"] == str(W) and attrs["dbs_block"] == str(2 * W + 1)
+    assert attrs["workers"] == str(W)
     assert got[1].shape == (2 * W * 300 + 200, 150)
 
 

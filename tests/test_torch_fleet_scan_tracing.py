@@ -1,9 +1,9 @@
 """The spans and counters that a sweep of the port's fleet scan
 (gpud_tpu_torch/fleet_scan.py) records in the trace ring: the tree of
 ``fleet_scan.*`` spans, the loader's row counts against counts taken
-straight from the DBs, the bytes copied, the reader's columns at the edges
-of their growth against the reference's classes, the same spans as profiler
-annotations on the trace's clock, and the CLI's ``--spans``."""
+straight from the DBs, the bytes copied, the reader's blocks at the edges
+of their first size against the reference's classes, the same spans as
+profiler annotations on the trace's clock, and the CLI's ``--spans``."""
 
 import json
 import os
@@ -158,7 +158,7 @@ def test_loader_counters_equal_counts_from_the_dbs(tmp_path, monkeypatch):
     parts = [float(load[k]) for k in ("open_s", "fetch_s", "slowest_db_s")]
     assert all(0 < x < load_s for x in parts)
     assert float(load["open_s"]) + float(load["fetch_s"]) < load_s
-    assert (load["workers"], load["dbs_block"], load["dbs_columns"]) == ("0", "3", "0")
+    assert load["workers"] == "0"
     assert float(load["wait_s"]) == 0 and 0 < float(load["read_cpu_s"])
     pack = _attrs(spans, "fleet_scan.pack")
     assert (pack["links"], pack["t_max"], pack["truncated"]) == ("60", "60", "0")
@@ -179,15 +179,15 @@ def _shared_host_fleet(tmp_path):
 
 @pytest.mark.parametrize("cores", [1, 2, 8])
 def test_worker_counters_equal_counts_from_the_dbs(tmp_path, monkeypatch, cores):
-    # workers: min(cores, DBs), 0 inline; the host over two DBs is read
-    # into columns, the others into blocks; rows as the DBs count them
+    # workers: min(cores, DBs), 0 inline; the host over two DBs continues
+    # one block over both; rows as the DBs count them
     paths = _shared_host_fleet(tmp_path)
     _cores(monkeypatch, cores)
     _res, spans = _sweep(paths)
     load = _attrs(spans, "fleet_scan.load")
     workers = min(cores, len(paths))
     assert load["workers"] == str(workers if workers > 1 else 0)
-    assert (load["dbs"], load["dbs_block"], load["dbs_columns"]) == ("5", "3", "2")
+    assert load["dbs"] == "5"
     fetched, dropped = _counts_from_dbs(paths, NOW - WINDOW)
     assert (int(load["rows_fetched"]), int(load["rows_tombstoned"])) == (fetched, dropped)
     load_s = next(s for s in spans if s["name"] == "fleet_scan.load")["duration_seconds"]
@@ -357,15 +357,18 @@ def test_h2d_bytes_are_the_padded_layout(tmp_path, monkeypatch, n_devices):
     assert sum(s["name"] == "fleet_scan.gather" for s in spans) == 1
 
 
-@pytest.mark.parametrize("rows", [2 * snapshot_reader.FIRST_ROWS,
-                                  snapshot_reader.FIRST_ROWS + 1])
-def test_batch_edges_give_the_reference_classes(tmp_path, rows):
-    # 16 links, all in the window, read in ts order into the reader's
-    # columns, which double when full: they end full on a sweep's edge (one
-    # growth, then whole sweeps) or grow for the newest sweep's one row
-    links = 16
-    samples = [rows // links + (k < rows % links) for k in range(links)]
-    assert sum(samples) == rows and min(samples) > 1
+# a block is first sized for 256 links of 64 samples
+FIRST_LINKS, FIRST_T = 256, 64
+
+
+@pytest.mark.parametrize("links, samples", [(16, [FIRST_T] * 15 + [FIRST_T + 1]),
+                                            (FIRST_LINKS + 1, [3] * (FIRST_LINKS + 1))],
+                         ids=["samples", "links"])
+def test_batch_edges_give_the_reference_classes(tmp_path, links, samples):
+    # all in the window, read in ts order into a block at its first size: it
+    # grows for the newest sweep's one sample past its first samples, or for
+    # the one link past its first rows
+    rows = sum(samples)
     step = WINDOW / 2 / max(samples)
     _host_db(tmp_path / "h.db", links, samples, t0=NOW - max(samples) * step, step=step).close()
     paths = [str(tmp_path / "h.db")]
