@@ -23,18 +23,19 @@
  * caller converts it, and tpud_resume stores the result and walks on.
  * Tombstones this side does not judge stop the read with TPUD_FLOORS before
  * its walk; the caller judges them and hands the floors to tpud_walk. At the
- * end the DB is closed; what was read lives until tpud_close.
+ * end the DB is closed and what only the walk used is freed, so that a read
+ * waiting to be taken holds little; what the caller reads lives until
+ * tpud_close.
  *
  * A pool (tpud_pool_start) reads a list of DBs as the loader asks for them.
- * The thread that takes the DBs (tpud_pool_take) opens each, reads its
- * tombstones into floors, and, for a host's first DB, prepares its walk and
- * sizes its block, a window of DBs ahead; worker threads of small stacks walk
- * those; the taking thread ends each walk, and walks a DB that continues a
- * block, or whose floors the caller judged, itself. A worker calls neither
- * malloc nor free: what it needs is allocated, and what it drops freed, by
- * the taking thread, so no worker has a malloc arena of its own to keep its
- * peak resident after the load. Where the pool has no thread, the taking
- * thread walks each DB too.
+ * Worker threads of small stacks each read a DB whole, at most a window of
+ * DBs ahead of the last one taken: open it, judge its tombstones into floors
+ * and, for a host's first DB, make its block, walk it to the end and close
+ * the DB. The thread that takes the DBs in order (tpud_pool_take) walks a DB
+ * that continues a block, or whose floors the caller judged, itself. Each
+ * thread allocates for itself; a worker's memory comes from a malloc arena of
+ * its own, which the next load's workers reuse. Where the pool has no
+ * thread, the taking thread reads each DB.
  *
  * SQLite's header is not needed: the few functions used are declared here,
  * and the library is the one the interpreter's sqlite3 module loaded.
@@ -93,7 +94,7 @@ int sqlite3_column_bytes(sqlite3_stmt *stmt, int i);
  * few pages on the paths from the two b-trees' roots serve it, where
  * SQLite's default holds 2 MB a connection. Set before the first page is
  * read, it also bounds the pages SQLite allocates at once for the cache,
- * so a walk allocates none. A pool holds a window of DBs open at once:
+ * so a walk allocates none. A pool holds a DB open on each of its workers:
  * each keeps this little, and no lookaside buffer */
 #define WALK_CACHE "PRAGMA cache_size=8"
 
@@ -116,8 +117,6 @@ typedef struct {
     int64_t *slots;         /* id + 1, 0 empty */
     int64_t n_slots;
 } name_table;
-
-typedef struct tpud_pool tpud_pool;
 
 /* A host's block, written by the walks of its DBs in turn. */
 typedef struct {
@@ -162,106 +161,53 @@ typedef struct {
     name_table floors;      /* tombstoned link names, their floors in floor_of */
     double *floor_of;
     double floor0;          /* the floor of a link without a tombstone */
-    double last_ts;         /* the walk's last rows: last_n rows at last_ts */
-    int64_t last_n;
-    tpud_pool *pool;        /* a worker's pool, while a worker walks */
-    void *given;            /* the memory it asked the pool for */
-    void *dropped;          /* memory it let go, chained for freeing */
 } tpud_reader;
 
-struct tpud_pool {
+typedef struct {
     struct tpud_job *jobs;
     int64_t n;
-    int64_t window;         /* jobs opened ahead of the caller, at most */
-    int64_t opened;         /* the jobs the caller opened */
-    int64_t next;           /* the next job a worker walks */
+    int64_t window;         /* jobs read ahead of the last one taken, at most */
+    int64_t next;           /* the next job a worker reads */
     int64_t taken;          /* the jobs the caller took */
-    int64_t walking;        /* workers in a walk */
     int64_t links_hint;     /* the largest block yet: the next one's first size */
     int64_t t_hint;
     int8_t *done;
     int stop;
-    tpud_reader *asks;      /* a worker's reader waiting for memory */
-    int64_t asks_n;
-    int asks_map;           /* pages mapped for it, not calloc's */
     pthread_mutex_t mu;
-    pthread_cond_t cv;      /* a job opened, walked or taken, memory asked or given, the stop */
+    pthread_cond_t cv;      /* a job read or taken, the stop */
     pthread_t *threads;
     int64_t n_threads;
-};
+} tpud_pool;
 
 static int64_t page_up(int64_t n) {
     int64_t page = sysconf(_SC_PAGESIZE);
     return (n + page - 1) / page * page;
 }
 
-/* Zeroed memory of n bytes, 16 at least: calloc's, or pages mapped for it
- * alone (map); NULL where there is none. */
-static void *zeroed(int64_t n, int map) {
-    n = n < 16 ? 16 : n;
-    if (!map) return calloc(n, 1);
+/* Zeroed pages of n bytes, mapped for them alone; NULL where there are none. */
+static void *map_pages(int64_t n) {
     void *p = mmap(NULL, n, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
     return p == MAP_FAILED ? NULL : p;
 }
 
-/* Unmaps n bytes of pages that zeroed mapped. */
+/* Unmaps n bytes of pages that map_pages mapped. */
 void tpud_unmap(void *p, int64_t n) {
     if (p && n > 0) munmap(p, page_up(n));
 }
 
-/* Zeroed memory for a reader (see zeroed). A worker asks the pool's taking
- * thread for it and waits. */
-static void *zalloc(tpud_reader *h, int64_t n, int map) {
-    tpud_pool *p = h->pool;
-    if (!p) return zeroed(n, map);
-    pthread_mutex_lock(&p->mu);
-    while (p->asks) pthread_cond_wait(&p->cv, &p->mu);
-    p->asks = h;
-    p->asks_n = n;
-    p->asks_map = map;
-    pthread_cond_broadcast(&p->cv);
-    while (p->asks == h) pthread_cond_wait(&p->cv, &p->mu);
-    pthread_mutex_unlock(&p->mu);
-    return h->given;
-}
-
-/* Lets memory of a reader go (n: the bytes mapped, 0 for calloc's): a
- * worker chains it for the taking thread in its first 16 bytes. */
-static void release(tpud_reader *h, void *m, int64_t n) {
-    if (!m) return;
-    if (!h->pool) {
-        if (n) tpud_unmap(m, n);
-        else free(m);
-        return;
-    }
-    ((void **)m)[0] = h->dropped;
-    ((int64_t *)m)[1] = n;
-    h->dropped = m;
-}
-
-static void free_dropped(tpud_reader *h) {
-    while (h->dropped) {
-        void *m = h->dropped;
-        h->dropped = ((void **)m)[0];
-        int64_t n = ((int64_t *)m)[1];
-        if (n) tpud_unmap(m, n);
-        else free(m);
-    }
-}
-
-/* `old`'s first `used` bytes in new zeroed memory of `bytes`, `old` let go;
+/* `old`'s first `used` bytes in new zeroed memory of `bytes`, `old` freed;
  * NULL out of memory. */
-static void *regrow(tpud_reader *h, void *old, int64_t used, int64_t bytes) {
-    char *p = zalloc(h, bytes, 0);
+static void *regrow(void *old, int64_t used, int64_t bytes) {
+    char *p = calloc(bytes, 1);
     if (!p) return NULL;
     if (used) memcpy(p, old, used);
-    release(h, old, 0);
+    free(old);
     return p;
 }
 
 /* A copy of n bytes, NUL-terminated. */
-static char *copy_bytes(tpud_reader *h, const void *p, int64_t n) {
-    char *out = zalloc(h, n + 8, 0);
+static char *copy_bytes(const void *p, int64_t n) {
+    char *out = calloc(n + 8, 1);
     if (out && n) memcpy(out, p, n);
     return out;
 }
@@ -270,8 +216,8 @@ static char *copy_bytes(tpud_reader *h, const void *p, int64_t n) {
 static int fail(tpud_reader *h, int rc) {
     const char *msg = h->db ? sqlite3_errmsg(h->db) : "out of memory";
     h->errcode = h->db ? sqlite3_extended_errcode(h->db) : rc;
-    release(h, h->errmsg, 0);
-    h->errmsg = copy_bytes(h, msg, strlen(msg));
+    free(h->errmsg);
+    h->errmsg = copy_bytes(msg, strlen(msg));
     return rc & 0xff;
 }
 
@@ -318,7 +264,7 @@ static int read_tombstones(tpud_reader *h, const char *sql) {
         row[0].p = row[1].p = NULL; /* what tpud_close frees, if a copy fails */
         for (int c = 0; c < 2; c++) {
             tpud_value v = column_value(h->stmt, c);
-            if (v.p && !(v.p = copy_bytes(h, v.p, v.n))) return SQLITE_NOMEM;
+            if (v.p && !(v.p = copy_bytes(v.p, v.n))) return SQLITE_NOMEM;
             row[c] = v;
         }
     }
@@ -360,43 +306,43 @@ static int same_name(const name_table *t, int64_t k, const char *p, int64_t n) {
 }
 
 /* The table's slots, n of them (a power of 2). */
-static int grow_slots(tpud_reader *h, name_table *t, int64_t n) {
-    int64_t *slots = zalloc(h, n * sizeof *slots, 0);
+static int grow_slots(name_table *t, int64_t n) {
+    int64_t *slots = calloc(n, sizeof *slots);
     if (!slots) return SQLITE_NOMEM;
     for (int64_t k = 0, start = 0; k < t->n; start = t->ends[k++]) {
         uint64_t s = name_slot(t->names + start, t->ends[k] - start, n);
         while (slots[s]) s = (s + 1) & (n - 1);
         slots[s] = k + 1;
     }
-    release(h, t->slots, 0);
+    free(t->slots);
     t->slots = slots;
     t->n_slots = n;
     return SQLITE_OK;
 }
 
 /* Room in the table for `names` names of `bytes` bytes in all. */
-static int reserve_names(tpud_reader *h, name_table *t, int64_t names, int64_t bytes) {
+static int reserve_names(name_table *t, int64_t names, int64_t bytes) {
     void *p;
     if (names > t->ends_cap) {
-        if (!(p = regrow(h, t->ends, t->n * sizeof *t->ends, names * sizeof *t->ends)))
+        if (!(p = regrow(t->ends, t->n * sizeof *t->ends, names * sizeof *t->ends)))
             return SQLITE_NOMEM;
         t->ends = p;
         t->ends_cap = names;
     }
     if (bytes > t->names_cap) {
-        if (!(p = regrow(h, t->names, t->n ? t->ends[t->n - 1] : 0, bytes))) return SQLITE_NOMEM;
+        if (!(p = regrow(t->names, t->n ? t->ends[t->n - 1] : 0, bytes))) return SQLITE_NOMEM;
         t->names = p;
         t->names_cap = bytes;
     }
     int64_t slots = t->n_slots ? t->n_slots : 256;
     while (slots < 2 * names) slots *= 2;
-    return slots > t->n_slots ? grow_slots(h, t, slots) : SQLITE_OK;
+    return slots > t->n_slots ? grow_slots(t, slots) : SQLITE_OK;
 }
 
 /* The name's id; a name not held is added, numbered next (-1 out of
  * memory), or with add 0 is -2. */
-static int64_t name_id(tpud_reader *h, name_table *t, const char *p, int64_t n, int add) {
-    if (!t->slots && grow_slots(h, t, 256)) return -1;
+static int64_t name_id(name_table *t, const char *p, int64_t n, int add) {
+    if (!t->slots && grow_slots(t, 256)) return -1;
     uint64_t s = name_slot(p, n, t->n_slots);
     for (; t->slots[s]; s = (s + 1) & (t->n_slots - 1)) {
         if (same_name(t, t->slots[s] - 1, p, n)) return t->slots[s] - 1;
@@ -405,8 +351,8 @@ static int64_t name_id(tpud_reader *h, name_table *t, const char *p, int64_t n, 
     int64_t id = t->n, used = id ? t->ends[id - 1] : 0;
     if (id == t->ends_cap || used + n > t->names_cap) {
         /* the slots double with the names: find the new one's again */
-        if (reserve_names(h, t, id ? 2 * id : 256, 2 * (used + n) + 4096)) return -1;
-        return name_id(h, t, p, n, add);
+        if (reserve_names(t, id ? 2 * id : 256, 2 * (used + n) + 4096)) return -1;
+        return name_id(t, p, n, add);
     }
     if (n) memcpy(t->names + used, p, n);
     t->ends[id] = used + n;
@@ -429,12 +375,12 @@ static int resize_block(tpud_reader *h, int64_t links, int64_t t) {
     int64_t rows = b->links_cap < links ? b->links_cap : links;
     if (b->links.n < rows) rows = b->links.n;
     for (int64_t k = 0; k < rows && t != b->t_cap; k++) {
-        int64_t *raw = b->raw[k] ? regrow(h, b->raw[k], keep * 8, t * 8) : NULL;
+        int64_t *raw = b->raw[k] ? regrow(b->raw[k], keep * 8, t * 8) : NULL;
         if (b->raw[k] && !raw) return SQLITE_NOMEM;
         b->raw[k] = raw;
     }
     int64_t cells = links * t;
-    char *buf = zalloc(h, cells * 6, 1);
+    char *buf = map_pages(cells * 6);
     if (!buf) return SQLITE_NOMEM;
     int32_t *ct = (int32_t *)buf;
     int8_t *st = (int8_t *)(buf + cells * 4);
@@ -444,7 +390,7 @@ static int resize_block(tpud_reader *h, int64_t links, int64_t t) {
         memcpy(st + k * t, b->state + k * b->t_cap, keep);
         memcpy(vd + k * t, b->valid + k * b->t_cap, keep);
     }
-    release(h, b->buf, b->bytes);
+    tpud_unmap(b->buf, b->bytes);
     b->buf = buf;
     b->bytes = cells * 6;
     b->counter = ct;
@@ -460,13 +406,13 @@ static int reserve_links(tpud_reader *h, int64_t cap) {
     tpud_block *b = h->b;
     int64_t n = b->links.n < b->links_cap ? b->links.n : b->links_cap;
     void *p;
-    if (!(p = regrow(h, b->kept, n * 8, cap * 8))) return SQLITE_NOMEM;
+    if (!(p = regrow(b->kept, n * 8, cap * 8))) return SQLITE_NOMEM;
     b->kept = p;
-    if (!(p = regrow(h, b->base, n * 8, cap * 8))) return SQLITE_NOMEM;
+    if (!(p = regrow(b->base, n * 8, cap * 8))) return SQLITE_NOMEM;
     b->base = p;
-    if (!(p = regrow(h, b->floor, n * 8, cap * 8))) return SQLITE_NOMEM;
+    if (!(p = regrow(b->floor, n * 8, cap * 8))) return SQLITE_NOMEM;
     b->floor = p;
-    if (!(p = regrow(h, b->raw, n * 8, cap * 8))) return SQLITE_NOMEM;
+    if (!(p = regrow(b->raw, n * 8, cap * 8))) return SQLITE_NOMEM;
     b->raw = p;
     int64_t t = b->t_cap ? b->t_cap : 64;
     return resize_block(h, cap, t < b->max_samples ? t : b->max_samples);
@@ -477,7 +423,7 @@ static int link_floor(tpud_reader *h, int64_t k) {
     tpud_block *b = h->b;
     int64_t start = k ? b->links.ends[k - 1] : 0;
     int64_t f = h->floors.n
-        ? name_id(h, &h->floors, b->links.names + start, b->links.ends[k] - start, 0) : -2;
+        ? name_id(&h->floors, b->links.names + start, b->links.ends[k] - start, 0) : -2;
     if (f == -1) return SQLITE_NOMEM;
     b->floor[k] = f >= 0 ? h->floor_of[f] : h->floor0;
     return SQLITE_OK;
@@ -495,7 +441,7 @@ static int add_link(tpud_reader *h, int64_t k) {
  * samples so far filled in (none was clipped, so base + delta is exact). */
 static int keep_raw(tpud_reader *h, int64_t k, int64_t n) {
     tpud_block *b = h->b;
-    int64_t *raw = zalloc(h, b->t_cap * 8, 0);
+    int64_t *raw = calloc(b->t_cap, 8);
     if (!raw) return SQLITE_NOMEM;
     for (int64_t j = 0; j < n && j < b->t_cap; j++)
         raw[j] = (int64_t)((uint64_t)b->base[k] + (uint64_t)(int64_t)b->counter[k * b->t_cap + j]);
@@ -594,11 +540,21 @@ static int close_block(tpud_reader *h) {
                 c[j] = (int32_t)(d < INT32_MIN ? INT32_MIN : d > INT32_MAX ? INT32_MAX : d);
             }
         }
-        release(h, raw, 0);
+        free(raw);
         b->raw[k] = NULL;
     }
     if (b->buf && (b->links_cap != b->links.n || b->t_cap != t)) pack_block(b, t);
     b->t = t;
+    /* the walks' own state goes: the caller reads the names, kept and pages */
+    free(b->base);
+    free(b->floor);
+    free(b->raw);
+    free(b->links.slots);
+    b->base = NULL;
+    b->floor = NULL;
+    b->raw = NULL;
+    b->links.slots = NULL;
+    b->links.n_slots = 0;
     return SQLITE_DONE;
 }
 
@@ -612,7 +568,7 @@ static int fill(tpud_reader *h, int c0) {
         if (c == 0 && type == SQLITE_TEXT) {
             const char *p = (const char *)sqlite3_column_text(st, 0);
             int64_t n_links = h->b->links.n;
-            int64_t id = name_id(h, &h->b->links, p, sqlite3_column_bytes(st, 0), 1);
+            int64_t id = name_id(&h->b->links, p, sqlite3_column_bytes(st, 0), 1);
             if (id < 0 || (id == n_links && add_link(h, id))) return SQLITE_NOMEM;
             h->r_lid = (int32_t)id;
         } else if (c == 1 && (type == SQLITE_FLOAT || type == SQLITE_INTEGER)) {
@@ -648,12 +604,16 @@ static int walk(tpud_reader *h) {
     return rc;
 }
 
-/* A walk's code once it ended: the DB closed, at the host's last DB the
- * block closed too. */
+/* A walk's code once it ended: the DB and its floors let go, at the host's
+ * last DB the block closed too. */
 static int end_walk(tpud_reader *h, int rc) {
-    free_dropped(h);
     if (rc != SQLITE_DONE) return rc;
     finish(h);
+    /* the floors served this walk alone */
+    free_names(&h->floors);
+    h->floors = (name_table){0};
+    free(h->floor_of);
+    h->floor_of = NULL;
     return h->owns ? close_block(h) : rc;
 }
 
@@ -697,7 +657,6 @@ static void free_block(tpud_block *b) {
 void tpud_close(tpud_reader *h) {
     if (!h) return;
     finish(h);
-    free_dropped(h);
     free(h->errmsg);
     free_values(h->tombstones, 2 * h->n_tombstones);
     free_names(&h->floors);
@@ -740,7 +699,7 @@ static int set_floors(tpud_reader *h, const tpud_value *rows, int64_t n) {
     for (int64_t k = 0; k < n; k++) {
         const tpud_value *name = &rows[2 * k], *ts = &name[1];
         if (name->type != SQLITE_TEXT) continue;
-        int64_t id = name_id(h, &h->floors, name->p, name->n, 1);
+        int64_t id = name_id(&h->floors, name->p, name->n, 1);
         if (id < 0) return SQLITE_NOMEM;
         double v = ts->type == SQLITE_INTEGER ? ts->i : ts->f;
         h->floor_of[id] = v > g ? v : g;
@@ -768,7 +727,6 @@ typedef struct tpud_job {
     const char *uri;
     const char *tombstone_sql;
     const char *sql;
-    const char *last_sql;   /* the largest ts and its rows' count */
     double start;
     int64_t max_samples;    /* at least 1 */
     int64_t first;          /* the host's first DB, whose job keeps the host's block */
@@ -778,24 +736,12 @@ typedef struct tpud_job {
     tpud_reader *h;
     int64_t opened;         /* else rc is the open's failure */
     int64_t rc;             /* the open's or the walk's code; TPUD_FLOORS */
-    double open_s;          /* the open, its tombstones and their floors */
-    double fetch_s;         /* the walk */
+    double open_s;          /* the open, its tombstones and their floors, the block made */
+    double fetch_s;         /* the walk, the DB's close and the block's */
     double cpu_s;           /* the read's thread CPU */
-    double wait_s;          /* the taking thread's wait for a worker's walk */
+    double wait_s;          /* the taking thread's wait for the job's worker */
+    int64_t on_worker;      /* the read ran on a worker thread */
 } tpud_job;
-
-/* The walk's last rows, where the DB tells them: the rows at its largest ts
- * end the walk, in rowid order. */
-static void last_rows(tpud_reader *h, const char *sql) {
-    sqlite3_stmt *q;
-    if (sqlite3_prepare_v2(h->db, sql, -1, &q, NULL) != SQLITE_OK) return;
-    int type = sqlite3_step(q) == SQLITE_ROW ? sqlite3_column_type(q, 0) : SQLITE_NULL;
-    if (type == SQLITE_FLOAT || type == SQLITE_INTEGER) {
-        h->last_ts = sqlite3_column_double(q, 0);
-        h->last_n = sqlite3_column_int64(q, 1);
-    }
-    sqlite3_finalize(q);
-}
 
 /* A host's block, first sized for `links` links of `t` samples. */
 static int new_block(tpud_reader *h, int64_t max_samples, int64_t links, int64_t t) {
@@ -803,17 +749,26 @@ static int new_block(tpud_reader *h, int64_t max_samples, int64_t links, int64_t
     if (!b) return SQLITE_NOMEM;
     b->max_samples = max_samples;
     b->t_cap = t < max_samples ? t : max_samples;
-    if (reserve_names(h, &b->links, links, 32 * links) || reserve_links(h, links))
+    if (reserve_names(&b->links, links, 32 * links) || reserve_links(h, links))
         return SQLITE_NOMEM;
     return SQLITE_OK;
 }
 
-/* Opens job i's DB and judges its floors, on the taking thread. A host's
- * first DB gets its block, first sized as the largest before it where there
- * was one, and where its floors are judged here its walk is readied for a
- * worker: the job's rc is SQLITE_OK. A DB after its host's first takes the
- * host's block; it is walked when taken. */
-static void open_job(tpud_pool *p, int64_t i) {
+/* A block just closed: the next blocks' first size, where it is the largest. */
+static void size_hint(tpud_pool *p, const tpud_block *b) {
+    pthread_mutex_lock(&p->mu);
+    if (b->links.n > p->links_hint) p->links_hint = b->links.n;
+    if (b->t > p->t_hint) p->t_hint = b->t;
+    pthread_mutex_unlock(&p->mu);
+}
+
+/* Reads job i on the calling thread: opens its DB and judges its floors. A
+ * host's first DB gets the host's block, first sized as the largest closed
+ * before it, and where its floors are judged here it is walked to the end,
+ * the DB closed, and at the host's last DB the block closed too. A DB after
+ * its host's first continues a block that a DB before it writes: it is
+ * walked when taken. */
+static void read_job(tpud_pool *p, int64_t i) {
     tpud_job *j = &p->jobs[i];
     double w0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
     int rc = tpud_open(j->uri, j->tombstone_sql, &j->h);
@@ -821,71 +776,46 @@ static void open_job(tpud_pool *p, int64_t i) {
     j->opened = rc == SQLITE_OK;
     if (rc == SQLITE_OK)
         rc = !judges(h) ? TPUD_FLOORS : set_floors(h, h->tombstones, h->tomb_rc ? 0 : h->n_tombstones);
-    if (j->opened && j->first != i) {
-        h->b = p->jobs[j->first].b;
-    } else if (rc == SQLITE_OK || rc == TPUD_FLOORS) {
+    int walks = j->opened && j->first == i;
+    if (walks && (rc == SQLITE_OK || rc == TPUD_FLOORS)) {
         pthread_mutex_lock(&p->mu);
         int64_t links = p->links_hint ? p->links_hint : 256, t = p->t_hint ? p->t_hint : 64;
         pthread_mutex_unlock(&p->mu);
         int made = new_block(h, j->max_samples, links, t);
-        j->b = h->b;
+        /* the block is the host's last DB's reader's; till then this job's */
+        if (j->last) h->owns = 1;
+        else j->b = h->b;
         if (made != SQLITE_OK) rc = made;
-        else if (rc == SQLITE_OK && (rc = start_walk(h, j->sql, j->start)) == SQLITE_OK) {
-            /* the first row here: SQLite allocates the walk's cursors in it */
-            if ((rc = step(h)) == SQLITE_OK) last_rows(h, j->last_sql);
-        }
+        else if (rc == SQLITE_OK) rc = start_walk(h, j->sql, j->start);
+    }
+    double w1 = clock_s(CLOCK_MONOTONIC);
+    j->open_s = w1 - w0;
+    if (walks && rc == SQLITE_OK) {
+        rc = end_walk(h, walk(h));
+        if (rc == SQLITE_DONE && h->owns) size_hint(p, h->b);
+        j->fetch_s = clock_s(CLOCK_MONOTONIC) - w1;
     }
     j->rc = rc;
-    j->open_s = clock_s(CLOCK_MONOTONIC) - w0;
     j->cpu_s = clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
-}
-
-/* Walks job i, where its open readied a walk. A worker stops at the walk's
- * last row: the step after it, in which SQLite frees the walk's cursors, is
- * the taking thread's (tpud_pool_take). */
-static void walk_job(tpud_pool *p, int64_t i, int worker) {
-    tpud_job *j = &p->jobs[i];
-    if (j->rc != SQLITE_OK || j->first != i) return;
-    tpud_reader *h = j->h;
-    double w0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
-    h->pool = worker ? p : NULL;
-    int rc;
-    for (int64_t last = 0; (rc = step(h)) == SQLITE_OK;) {
-        if (worker && h->r_ts == h->last_ts && ++last == h->last_n) break;
-    }
-    j->rc = rc;
-    h->pool = NULL;
-    j->fetch_s = clock_s(CLOCK_MONOTONIC) - w0;
-    j->cpu_s += clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
 }
 
 static void *work(void *arg) {
     tpud_pool *p = arg;
     pthread_mutex_lock(&p->mu);
     for (;;) {
-        while (!p->stop && p->next >= p->opened) pthread_cond_wait(&p->cv, &p->mu);
-        if (p->stop) break;
+        while (!p->stop && p->next < p->n && p->next >= p->taken + p->window)
+            pthread_cond_wait(&p->cv, &p->mu);
+        if (p->stop || p->next >= p->n) break;
         int64_t i = p->next++;
-        p->walking++;
         pthread_mutex_unlock(&p->mu);
-        walk_job(p, i, 1);
+        p->jobs[i].on_worker = 1;
+        read_job(p, i);
         pthread_mutex_lock(&p->mu);
-        p->walking--;
         p->done[i] = 1;
         pthread_cond_broadcast(&p->cv);
     }
     pthread_mutex_unlock(&p->mu);
     return NULL;
-}
-
-/* Gives the memory a worker asked for; the pool's lock is held. */
-static void give(tpud_pool *p) {
-    tpud_reader *h = p->asks;
-    pthread_mutex_unlock(&p->mu);
-    h->given = zeroed(p->asks_n, p->asks_map);
-    pthread_mutex_lock(&p->mu);
-    p->asks = NULL;
-    pthread_cond_broadcast(&p->cv);
 }
 
 static void free_pool(tpud_pool *p) {
@@ -897,14 +827,15 @@ static void free_pool(tpud_pool *p) {
 }
 
 /* A pool over jobs[0..n): with `workers` of 2 or more, as many threads of
- * stack_bytes stacks (larger where that is refused) walk the jobs that
- * tpud_pool_take opened, at most `workers` ahead of it; else the taking
- * thread walks each job too. NULL out of memory. */
+ * stack_bytes stacks (larger where that is refused) read the jobs in order,
+ * at most `workers` ahead of the last one taken; else tpud_pool_take reads
+ * each job. NULL out of memory. */
 tpud_pool *tpud_pool_start(tpud_job *jobs, int64_t n, int64_t workers, int64_t stack_bytes) {
     tpud_pool *p = calloc(1, sizeof *p);
     if (!p) return NULL;
     p->jobs = jobs;
     p->n = n;
+    p->window = workers;
     p->done = calloc(n ? n : 1, 1);
     p->threads = calloc(workers > 1 ? workers : 1, sizeof *p->threads);
     pthread_mutex_init(&p->mu, NULL);
@@ -923,12 +854,11 @@ tpud_pool *tpud_pool_start(tpud_job *jobs, int64_t n, int64_t workers, int64_t s
             if (pthread_attr_setstacksize(&a, size) == 0)
                 rc = pthread_create(&p->threads[k], &a, work, p);
         }
-        if (rc) break; /* fewer threads, or none: the taking thread walks */
+        if (rc) break; /* fewer threads, or none: the taking thread reads */
         pthread_setname_np(p->threads[k], "fleet_scan-read");
         p->n_threads++;
     }
     pthread_attr_destroy(&a);
-    p->window = p->n_threads ? workers : 1;
     return p;
 }
 
@@ -936,69 +866,46 @@ int64_t tpud_pool_threads(tpud_pool *p) {
     return p->n_threads;
 }
 
-/* Job i, the one after the last taken, once read; the jobs up to a window
- * ahead of it are opened first. A DB after its host's first is walked here.
- * Its handle is the caller's from here, and at the host's last DB the
- * host's block with it. */
+/* Job i, the one after the last taken, once read; a DB after its host's
+ * first is walked here. Its handle is the caller's from here, and at the
+ * host's last DB the host's block with it. */
 void tpud_pool_take(tpud_pool *p, int64_t i) {
-    while (p->opened < p->n && p->opened < i + p->window) {
-        open_job(p, p->opened);
-        pthread_mutex_lock(&p->mu);
-        p->opened++;
-        pthread_cond_broadcast(&p->cv);
-        pthread_mutex_unlock(&p->mu);
-    }
     tpud_job *j = &p->jobs[i];
-    tpud_reader *h = j->h;
     if (!p->n_threads) {
-        walk_job(p, i, 0);
+        read_job(p, i);
         p->done[i] = 1;
     }
     double w0 = clock_s(CLOCK_MONOTONIC);
     pthread_mutex_lock(&p->mu);
-    while (!p->done[i]) {
-        if (p->asks) give(p);
-        else pthread_cond_wait(&p->cv, &p->mu);
-    }
+    while (!p->done[i]) pthread_cond_wait(&p->cv, &p->mu);
     p->taken = i + 1;
+    pthread_cond_broadcast(&p->cv);
     pthread_mutex_unlock(&p->mu);
     j->wait_s = p->n_threads ? clock_s(CLOCK_MONOTONIC) - w0 : 0.0;
+    tpud_reader *h = j->h;
+    if (!j->opened || j->first == i) return;
+    tpud_job *f = &p->jobs[j->first];
+    h->b = f->b;
     if (j->last) {
-        tpud_job *f = &p->jobs[j->first];
-        if (h) {
-            h->b = f->b;
-            h->owns = 1;
-        } else {
-            free_block(f->b);
-        }
+        h->owns = 1;
         f->b = NULL;
     }
-    if (j->opened) {
+    if (j->rc == SQLITE_OK) {
         double e0 = clock_s(CLOCK_MONOTONIC), c0 = clock_s(CLOCK_THREAD_CPUTIME_ID);
-        j->rc = j->rc == SQLITE_OK && j->first != i ? walk_here(h, j->sql, j->start)
-                : end_walk(h, j->rc == SQLITE_OK ? walk(h) : (int)j->rc);
+        j->rc = walk_here(h, j->sql, j->start);
+        if (j->rc == SQLITE_DONE && h->owns) size_hint(p, h->b);
         j->fetch_s += clock_s(CLOCK_MONOTONIC) - e0;
         j->cpu_s += clock_s(CLOCK_THREAD_CPUTIME_ID) - c0;
-        if (j->rc == SQLITE_DONE && h->owns) {
-            pthread_mutex_lock(&p->mu);
-            if (h->b->links.n > p->links_hint) p->links_hint = h->b->links.n;
-            if (h->b->t > p->t_hint) p->t_hint = h->b->t;
-            pthread_mutex_unlock(&p->mu);
-        }
     }
 }
 
-/* Walks no more jobs, waits for the walks running (giving the memory they
- * ask for), and closes the handles of the jobs not taken and the blocks of
- * the hosts whose last DB was not taken. */
+/* Starts no more reads, waits for the workers to end theirs, and closes the
+ * handles of the jobs not taken and the blocks of the hosts whose last DB
+ * was not taken. */
 void tpud_pool_stop(tpud_pool *p) {
     pthread_mutex_lock(&p->mu);
     p->stop = 1;
     pthread_cond_broadcast(&p->cv);
-    while (p->walking || p->asks) {
-        if (p->asks) give(p);
-        else pthread_cond_wait(&p->cv, &p->mu);
-    }
     pthread_mutex_unlock(&p->mu);
     for (int64_t k = 0; k < p->n_threads; k++) pthread_join(p->threads[k], NULL);
     for (int64_t i = 0; i < p->n; i++) {

@@ -25,7 +25,7 @@ component ``"fleet_scan"``), one per layer and none per DB or row:
       fleet_scan.load                dbs, rows_fetched, rows_tombstoned,
                                      rows_kept, open_s, fetch_s,
                                      slowest_db, slowest_db_s, workers,
-                                     wait_s, read_cpu_s
+                                     wait_s, read_cpu_s, opens_on_workers
         fleet_scan.pack              links, t_max, truncated
       fleet_scan.split               devices, h2d_bytes
         fleet_scan.h2d               bytes        } once per device
@@ -164,8 +164,9 @@ def load_fleet_history(
 
     The DBs are read side by side by the native reader
     (snapshot_reader.py), as many worker threads as this process may use
-    cores (none for one DB: it is read inline), and taken in DB order, so
-    the output and the first failure are those of a read one DB at a time.
+    cores (none for one DB: it is read inline), each DB whole on one of
+    them, and taken in DB order, so the output and the first failure are
+    those of a read one DB at a time.
     Each DB's window is walked straight into its host's block; a host spread
     over several DBs (a DB whose stem is another's disambiguated name)
     continues one block over them. At each DB its links with kept samples
@@ -173,11 +174,12 @@ def load_fleet_history(
     the fleet's arrays, and let go.
 
     Recorded as the ``fleet_scan.load`` span: rows fetched from SQLite,
-    dropped by set-healthy tombstones and kept; seconds in the opens (open
-    and tombstone read) and in the reader's window walk, summed over the
-    DBs, which overlap; the DB that took longest, from its open to the end
-    of its array work; the workers (0 inline), the seconds this thread
-    waited on the workers and the reads' thread CPU seconds, summed.
+    dropped by set-healthy tombstones and kept; seconds in the opens (open,
+    tombstone read and floors, the host's block made) and in the reader's
+    window walk with the DB's close, summed over the DBs, which overlap; the
+    DB that took longest, from its open to the end of its array work; the
+    workers (0 inline), the seconds this thread waited on the workers, the
+    reads' thread CPU seconds, summed, and the DBs opened on a worker.
     """
     t_now = now if now is not None else time.time()
     start = t_now - window_seconds
@@ -202,7 +204,7 @@ def load_fleet_history(
     cut_rows: List[int] = []
     fetched = tombstoned = 0
     open_s = fetch_s = read_cpu_s = wait_s = slowest_s = 0.0
-    slowest = ""
+    slowest, on_workers = "", 0
     with _span("fleet_scan.load") as sp:
         with Reads(uris, hosts, start, max_samples, workers) as reads:
             for i, host in enumerate(hosts):
@@ -214,6 +216,7 @@ def load_fleet_history(
                 fetch_s += read.fetch_s
                 read_cpu_s += read.cpu_s
                 wait_s += read.wait_s
+                on_workers += read.on_worker
                 _number_rows(row_of, host, read.links)
                 if read.block is not None:
                     cut_rows += _place_block(fleet, row_of, host, read.block, max_samples)
@@ -243,7 +246,7 @@ def load_fleet_history(
                            ("fetch_s", fetch_s), ("slowest_db", slowest),
                            ("slowest_db_s", slowest_s),
                            ("workers", n_workers), ("wait_s", wait_s),
-                           ("read_cpu_s", read_cpu_s)):
+                           ("read_cpu_s", read_cpu_s), ("opens_on_workers", on_workers)):
             sp.set_attr(key, value)
     return names, states, counters, valid, truncated
 

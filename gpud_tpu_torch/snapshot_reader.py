@@ -3,7 +3,7 @@
 ``csrc/snapshot_reader.c`` steps SQLite's rows straight into a host's block
 (:class:`Block`: each link's samples in a row of int8 states, int32 counters
 and valid flags), where Python's ``sqlite3`` would build a tuple of four
-objects a row; :class:`Reads` walks a fleet's DBs side by side on native
+objects a row; :class:`Reads` reads a fleet's DBs side by side on native
 worker threads. It is compiled with the host's C compiler on first use
 (``ops/_build.build_host``), never at import, and linked against the
 libsqlite3 that the interpreter's own ``sqlite3`` module loaded, so the
@@ -53,13 +53,11 @@ TOMBSTONE_TABLE = "tpud_ici_tombstones_v0_1"
 QUERY = (f"SELECT link, ts, state, crc_errors FROM {TABLE} "
          "WHERE ts>=? ORDER BY ts, rowid")
 TOMBSTONE_QUERY = f"SELECT link, ts FROM {TOMBSTONE_TABLE}"
-# the window's last rows, which end QUERY's walk: the largest ts and its rows
-LAST_QUERY = f"SELECT ts, count(*) FROM {TABLE} WHERE ts=(SELECT max(ts) FROM {TABLE})"
 
-# a reader thread's stack: SQLite's walk and the reader's C, thread-local
-# storage included, take under 16 KB of it. Where the system commits a
-# touched stack whole (a user-space kernel may), each thread costs this much resident
-# memory, not the 8 MB default's
+# a reader thread's stack: SQLite's open, schema read, walk and close and
+# the reader's C, thread-local storage included, take under 16 KB of it;
+# the rest is room for SQLite's rarer paths. The 8 MB default would reserve
+# 8 MB a thread
 STACK_BYTES = 64 * 1024
 
 _DONE = 101  # SQLITE_DONE
@@ -128,12 +126,11 @@ class _Job(ctypes.Structure):
 
     _fields_ = [
         ("uri", ctypes.c_char_p), ("tombstone_sql", ctypes.c_char_p), ("sql", ctypes.c_char_p),
-        ("last_sql", ctypes.c_char_p),
         ("start", ctypes.c_double), ("max_samples", ctypes.c_int64),
         ("first", ctypes.c_int64), ("last", ctypes.c_int64), ("b", ctypes.c_void_p),
         ("h", _Handle), ("opened", ctypes.c_int64), ("rc", ctypes.c_int64),
         ("open_s", ctypes.c_double), ("fetch_s", ctypes.c_double), ("cpu_s", ctypes.c_double),
-        ("wait_s", ctypes.c_double),
+        ("wait_s", ctypes.c_double), ("on_worker", ctypes.c_int64),
     ]
 
 
@@ -358,36 +355,38 @@ class Read(NamedTuple):
     block: Optional[Block]  # the host's block, at its last DB
     fetched: int            # rows the query returned
     tombstoned: int         # of them, dropped by a floor
-    open_s: float           # the open, the tombstones and their floors
-    fetch_s: float          # the walk
+    open_s: float           # the open, the tombstones and their floors, the block made
+    fetch_s: float          # the walk, the DB's close and the block's
     cpu_s: float            # the read's thread CPU, its threads' summed
-    wait_s: float           # the taking thread blocked on the walk's worker
+    wait_s: float           # the taking thread blocked on the read's worker
+    on_worker: bool         # the DB was opened on a worker thread
 
 
 class Reads:
     """Host DBs (``uris``; ``hosts[i]`` the host of DB i) read by the native
     side: each opened, its tombstones read and judged into floors, its window
-    walked into its host's block. With ``workers`` of 2 or more a host's
-    first DB is walked on one of as many native threads of ``STACK_BYTES``
-    stacks, at most that many DBs ahead of :meth:`take`; else (``workers``
-    0), and for a DB after its host's first or whose floors Python judges,
-    the walk is :meth:`take`'s. A block is first sized as the largest block
-    read before it. Leaving the ``with`` block waits for the reads running
-    and closes the DBs and blocks not taken."""
+    walked into its host's block. With ``workers`` of 2 or more each DB is
+    read whole on one of as many native threads of ``STACK_BYTES`` stacks
+    (opened, its host's first DB walked to the end and closed), at most that
+    many DBs ahead of the last one :meth:`take` took; else (``workers`` 0)
+    the read is :meth:`take`'s. A DB after its host's first, or whose floors
+    Python judges, is walked by :meth:`take`. A block is first sized as the
+    largest block read before it. Leaving the ``with`` block waits for the
+    reads running and closes the DBs and blocks not taken."""
 
     def __init__(self, uris: List[str], hosts: List[str], start: float, max_samples: int,
                  workers: int):
         if max_samples < 1:
             raise ValueError(f"max_samples must be at least 1, not {max_samples}")
         self._lib = _library()
-        self._text = [x.encode() for x in (TOMBSTONE_QUERY, QUERY, LAST_QUERY, *uris)]
+        self._text = [x.encode() for x in (TOMBSTONE_QUERY, QUERY, *uris)]
         self._jobs = (_Job * len(uris))()
         first, last = {}, {}
         for i, host in enumerate(hosts):
             first.setdefault(host, i)
             last[host] = i
-        for i, (job, uri, host) in enumerate(zip(self._jobs, self._text[3:], hosts)):
-            job.uri, job.tombstone_sql, job.sql, job.last_sql = uri, *self._text[:3]
+        for i, (job, uri, host) in enumerate(zip(self._jobs, self._text[2:], hosts)):
+            job.uri, job.tombstone_sql, job.sql = uri, *self._text[:2]
             job.start, job.max_samples = start, max_samples
             job.first, job.last = first[host], last[host] == i
         self._start = start
@@ -443,4 +442,5 @@ class Reads:
             fetched, tombstoned = r.n_rows, r.n_tombstoned
         fetch_s = time.perf_counter() - t0 - open_s
         return Read(links, block, fetched, tombstoned, job.open_s + open_s,
-                    job.fetch_s + fetch_s, job.cpu_s + time.thread_time() - cpu0, job.wait_s)
+                    job.fetch_s + fetch_s, job.cpu_s + time.thread_time() - cpu0, job.wait_s,
+                    bool(job.on_worker))

@@ -494,11 +494,24 @@ def _db_fds(paths):
     return fds
 
 
+def _no_table(tmp_path):
+    # a DB that opens and has tombstones, but no snapshot table: the walk's
+    # prepare fails
+    path = tmp_path / "no_table.db"
+    conn = sqlite3.connect(path)
+    conn.execute(f"CREATE TABLE {torch_fs.TOMBSTONE_TABLE} (link TEXT PRIMARY KEY, ts REAL)")
+    conn.execute(f"INSERT INTO {torch_fs.TOMBSTONE_TABLE} VALUES ('*', ?)", (NOW - 60,))
+    conn.commit()
+    conn.close()
+    return path
+
+
 @pytest.mark.parametrize("where", ["first", "middle", "last"])
 @pytest.mark.parametrize("make, exc, message", [
     (lambda tmp: tmp / "missing.db", sqlite3.OperationalError, "unable to open database file"),
     (_not_a_db, sqlite3.DatabaseError, "file is not a database"),
-], ids=["missing", "not_a_db"])
+    (_no_table, sqlite3.OperationalError, f"no such table: {TABLE}"),
+], ids=["missing", "not_a_db", "no_table"])
 def test_a_failing_db_raises_as_it_did_and_leaves_nothing_running(
         tmp_path, templates, monkeypatch, where, make, exc, message):
     paths = _db_set(tmp_path, templates, "_seeded", 3 * W + 1)
@@ -616,9 +629,9 @@ def test_max_samples_below_one_raises_before_any_db_is_opened(tmp_path):
 
 def test_workers_grow_blocks_past_their_first_size(tmp_path, monkeypatch):
     # 300 links of 150 samples: more than the first block's 256 rows and 64
-    # samples, so the first DBs' blocks grow on the workers (their memory
-    # comes from the taking thread), and the later DBs start at the size
-    # the first ones reached; one host is smaller than the rest
+    # samples, so the first DBs' blocks grow on the workers, and the later
+    # DBs start at the size the first ones reached; one host is smaller than
+    # the rest
     paths = [_host_db(tmp_path / f"host{i}.db", links=300 if i != 5 else 200,
                       minutes=150 if i != 5 else 90, seed=i)
              for i in range(2 * W + 1)]
@@ -647,16 +660,18 @@ def arenas():
 
 paths = sorted(glob.glob({pattern!r}))
 fs.load_fleet_history(paths[:1], 9000, now={now!r})
-before = arenas()
-for _ in range(2):
+counts = [arenas()]
+for _ in range(3):
     fs.load_fleet_history(paths, 9000, now={now!r})
-print(before, arenas())
+    counts.append(arenas())
+print(*counts)
 """
 
 
-def test_the_workers_leave_no_malloc_arena(tmp_path):
-    # a worker thread that called malloc or free would hold a malloc arena
-    # of its own, and keep its peak resident, for the rest of the process
+def test_worker_arenas_do_not_grow_across_loads(tmp_path):
+    # each worker allocates for itself, from a malloc arena of its own: the
+    # first load with workers adds at most one a worker, and the next loads'
+    # workers take those arenas again, so the process keeps no more of them
     import platform
 
     if platform.libc_ver()[0] != "glibc":
@@ -667,5 +682,22 @@ def test_the_workers_leave_no_malloc_arena(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    before, after = map(int, proc.stdout.split())
-    assert after == before
+    inline, first, *later = map(int, proc.stdout.split())
+    assert inline <= first <= inline + W
+    assert later == [first, first]
+
+
+@pytest.mark.parametrize("n, cores", [(1, W), (5, 1), (5, 2), (5, W), (2 * W + 1, W),
+                                      (8 * W + 1, 8 * W)])
+def test_opens_on_workers_counts_the_dbs_opened_on_a_worker(tmp_path, templates, monkeypatch,
+                                                           n, cores):
+    # with two workers or more every DB is opened on one, the DB after a
+    # host's first too; read inline (one core, or one DB), none is. The last
+    # case runs more workers than most hosts have cores
+    paths = _db_set(tmp_path, templates, "_seeded", n, _two_db_host)
+    want, _inline = _load(paths, monkeypatch, 1)
+    got, attrs = _load(paths, monkeypatch, cores)
+    _assert_same_load(got, want)
+    workers = min(cores, n) if min(cores, n) > 1 else 0
+    assert attrs["workers"] == str(workers)
+    assert attrs["opens_on_workers"] == str(n if workers else 0)

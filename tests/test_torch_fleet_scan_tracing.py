@@ -113,6 +113,11 @@ def _attrs(spans, name):
     return next(s for s in spans if s["name"] == name).get("attrs", {})
 
 
+LOAD_ATTRS = {"dbs", "rows_fetched", "rows_tombstoned", "rows_kept", "open_s", "fetch_s",
+              "slowest_db", "slowest_db_s", "workers", "wait_s", "read_cpu_s",
+              "opens_on_workers"}
+
+
 def test_one_sweep_records_the_tree(tmp_path):
     paths = _tombstoned_fleet(tmp_path)
     res, spans = _sweep(paths)
@@ -158,8 +163,9 @@ def test_loader_counters_equal_counts_from_the_dbs(tmp_path, monkeypatch):
     parts = [float(load[k]) for k in ("open_s", "fetch_s", "slowest_db_s")]
     assert all(0 < x < load_s for x in parts)
     assert float(load["open_s"]) + float(load["fetch_s"]) < load_s
-    assert load["workers"] == "0"
+    assert load["workers"] == "0" and load["opens_on_workers"] == "0"
     assert float(load["wait_s"]) == 0 and 0 < float(load["read_cpu_s"])
+    assert set(load) == LOAD_ATTRS and len(load) == 12
     pack = _attrs(spans, "fleet_scan.pack")
     assert (pack["links"], pack["t_max"], pack["truncated"]) == ("60", "60", "0")
 
@@ -187,6 +193,8 @@ def test_worker_counters_equal_counts_from_the_dbs(tmp_path, monkeypatch, cores)
     load = _attrs(spans, "fleet_scan.load")
     workers = min(cores, len(paths))
     assert load["workers"] == str(workers if workers > 1 else 0)
+    assert load["opens_on_workers"] == ("5" if workers > 1 else "0")
+    assert set(load) == LOAD_ATTRS
     assert load["dbs"] == "5"
     fetched, dropped = _counts_from_dbs(paths, NOW - WINDOW)
     assert (int(load["rows_fetched"]), int(load["rows_tombstoned"])) == (fetched, dropped)
