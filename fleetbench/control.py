@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import sys
 import tempfile
@@ -34,17 +35,20 @@ if __name__ == "__main__":
     sys.path[0] = str(CHECKOUT)
 
 
-def _control_sweep(db_paths, window_seconds, now, **_kw):
+def _control_sweep(db_paths, window_seconds, now, margin_seconds=None, **_kw):
     """The reference's answer with every tombstone ignored."""
     from fleetbench.reference import fleet as reference
 
-    res = reference.sweep(db_paths, window_seconds, now, tombstones=False)
+    res = reference.sweep(db_paths, window_seconds, now, tombstones=False,
+                          margin_seconds=margin_seconds)
     return dict(res, devices=1, window_seconds=window_seconds)
 
 
 @contextlib.contextmanager
-def variant(name: str):
-    """Apply one variant to the program's namespace for the block."""
+def variant(name: str, margin_seconds=None):
+    """Apply one variant to the program's namespace for the block; the
+    control reads rows from ``margin_seconds`` before the window on, as the
+    harness's reference does."""
     import torch
 
     import gpud_tpu_torch.fleet_scan as fs
@@ -52,7 +56,7 @@ def variant(name: str):
     saved = {k: getattr(fs, k) for k in ("fleet_scan", "scan_links_packed",
                                          "load_fleet_history", "classify_links")}
     if name == "control":
-        fs.fleet_scan = _control_sweep
+        fs.fleet_scan = functools.partial(_control_sweep, margin_seconds=margin_seconds)
     elif name == "zero_scan":
         def zero_scan(states, counters, valid):
             out = saved["scan_links_packed"](states, counters, valid)
@@ -88,7 +92,8 @@ def run_variants(cell, seeds, seconds: float, variants=VARIANTS) -> list:
     out = []
     for seed in seeds:
         for name in variants:
-            with tempfile.TemporaryDirectory(prefix="fleetbench-") as wd, variant(name):
+            with tempfile.TemporaryDirectory(prefix="fleetbench-") as wd, \
+                    variant(name, cell.config["history_before_window_seconds"]):
                 res = harness.run_cell(cell, seed, seconds, False, time.perf_counter(), wd,
                                        lambda: {}, expect_devices=cell.chips)
             out.append({"workload": cell.name, "seed": seed, "variant": name,

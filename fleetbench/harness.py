@@ -4,7 +4,10 @@ Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
 its configuration file (the entry's ``file``), its traffic mix
 ``workloads/<traffic>.json``, the mix's generator ``mixes/<generator>.py``,
 and each metric's reader ``metrics/<metric>.py``. Adding a configuration,
-a mix, a cell or a metric adds files and entries and edits none.
+a mix, a cell or a metric adds files and entries and edits none. A metric
+with a ``workloads`` list is the listed cells' alone; a per-layer metric
+without one follows its ``moves``: every cell that reports that end-to-end
+metric reports it.
 
 The window calls ``gpud_tpu_torch.fleet_scan.fleet_scan`` back to back (a
 closed loop: one operator who waits for each sweep) with the function's
@@ -73,9 +76,12 @@ def find_cell(spec: dict, name: str, checkout: Path = CHECKOUT,
     traffic = load_json(bench_dir / "workloads" / f"{w['traffic']}.json")
     gen = load_module(bench_dir / "mixes" / f"{traffic['generator']}.py",
                       f"fleetbench_mix_{traffic['generator']}")
+    end_to_end = [m for m in spec["end_to_end"] if name in m.get("workloads", [name])]
+    reported = {m["name"] for m in end_to_end}
+    per_layer = [m for m in spec["per_layer"]
+                 if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
     return Cell(name=name, chips=w["chips"], config=load_json(checkout / cfg_entry["file"]),
-                traffic=traffic, generator=gen,
-                end_to_end=spec["end_to_end"], per_layer=spec["per_layer"])
+                traffic=traffic, generator=gen, end_to_end=end_to_end, per_layer=per_layer)
 
 
 def read_metrics(entries: List[dict], run, bench_dir: Path = BENCH_DIR) -> Dict[str, dict]:
@@ -111,15 +117,28 @@ def forbidden_modules() -> List[str]:
     return sorted(m for m in sys.modules if m.split(".", 1)[0] in FORBIDDEN)
 
 
-def write_fleet(fleet, workdir: str) -> List[str]:
+def write_fleet(fleet, workdir: str, config: Optional[dict] = None,
+                marks: Optional[Dict[str, float]] = None, t0: float = 0.0):
+    """Every host's DB under ``workdir``. Returns the paths and what the
+    store holds (``rows_stored``, ``db_bytes``). A configuration with
+    ``store_retention_seconds`` gets the store's older history beneath the
+    generated rows (``fleetbench/retained.py``); any other, the generated
+    rows alone."""
     from fleetbench.store import write_host_db
 
-    paths = []
-    for host in fleet.hosts:
-        path = os.path.join(workdir, f"{host.name}.db")
-        write_host_db(path, host.links, host.ts, host.states, host.crc, host.tombstones)
-        paths.append(path)
-    return paths
+    if config is not None and "store_retention_seconds" in config:
+        from fleetbench import retained
+
+        paths, store = retained.write_fleet(fleet, workdir, config, marks, t0)
+    else:
+        paths = []
+        for host in fleet.hosts:
+            path = os.path.join(workdir, f"{host.name}.db")
+            write_host_db(path, host.links, host.ts, host.states, host.crc, host.tombstones)
+            paths.append(path)
+        store = {"rows_stored": fleet.rows_stored}
+    store["db_bytes"] = sum(os.path.getsize(p) for p in paths)
+    return paths, store
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, t0: float,
@@ -133,7 +152,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, t0: float,
     marks = {"start": time.perf_counter() - t0}
     fleet = cell.generator.generate(cell.config, cell.traffic, seed, NOW)
     marks["generated"] = time.perf_counter() - t0
-    paths = write_fleet(fleet, workdir)
+    paths, store = write_fleet(fleet, workdir, cell.config, marks, t0)
     marks["written"] = time.perf_counter() - t0
     window = float(cell.traffic["window_seconds"])
 
@@ -202,16 +221,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, t0: float,
         run.trace = tr.DeviceTrace.from_file(path)
         os.unlink(path)
 
-    # the reference, once the window has closed and the device was read
+    # the reference, once the window has closed and the device was read; it
+    # reads no row older than the generated ones
     t_ref = time.perf_counter()
-    ref = reference.sweep(paths, window, NOW)
+    ref = reference.sweep(paths, window, NOW,
+                          margin_seconds=cell.config["history_before_window_seconds"])
     ref_s = time.perf_counter() - t_ref
     warm_checks, _ = judge.judge([(warm, 1)], 0, ref, expect_devices)
     checks, failed = judge.judge([(r, n) for r, n in results if n], raised, ref, expect_devices)
     checks["warm_sweep_wrong"] = {"value": int(not judge.passed(warm_checks)), "limit": 0}
 
     run.info = {
-        "rows_stored": fleet.rows_stored, "rows_window": fleet.rows_window,
+        **store, "rows_window": fleet.rows_window,
         "rows_scanned": fleet.rows_scanned, "links": fleet.links_total,
         "t_max": fleet.t_max, "dbs": len(paths), "faults": fleet.kinds,
         "summary": ref["summary"],
@@ -224,7 +245,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, t0: float,
         "errors": errors,
         "wrapped": wrapped, "setup_marks_s": marks,
         "gc_s_by_generation": gc_clock.seconds, "gc_count_by_generation": gc_clock.count,
-        "sweep_s_all": times,
+        "sweep_s_all": times, "rss_base_bytes": rss_base, "rss_peak_bytes": rss.peak,
         "gc_full_passes_by_sweep": [b - a for a, b in zip([0] + gc_full, gc_full)],
         "window_thread_rusage": {k: getattr(ru1, k) - getattr(ru0, k) for k in
                                  ("ru_utime", "ru_stime", "ru_minflt", "ru_majflt", "ru_nvcsw",

@@ -1,10 +1,11 @@
 """Plain reference of a fleet link sweep: host DB files in, classes out.
 
-It reads each DB with its own query, takes every row (the window's edge
-is applied here, not in SQL), honours the set-healthy tombstones (a row
-older than ``max(tombstone['*'], tombstone[link])`` is dropped, and a link
-left with no rows is not reported), walks each link's rows in time order,
-and applies the link store's rules:
+It reads each DB with its own query, takes every row, or every row from a
+margin before the window's start on (the window's edge is applied here, not
+in SQL), honours the set-healthy tombstones (a row older than
+``max(tombstone['*'], tombstone[link])`` is dropped, and a link left with
+no rows is not reported), walks each link's rows in time order, and applies
+the link store's rules:
 
 - ``drops`` / ``flaps``: consecutive samples up then down / down then up
   (up is a state of 1 or more);
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import os
 import sqlite3
-from typing import Dict, List
+from typing import Dict, List, Optional
 from urllib.parse import quote
 
 import numpy as np
@@ -34,12 +35,14 @@ CLASS_NAMES = ("healthy", "degraded", "unhealthy")
 MAX_SAMPLES = 20160
 
 
-def _read_host(path: str):
+def _read_host(path: str, since: Optional[float] = None):
+    """The DB's rows at or after ``since`` (every row if None), and its
+    tombstones."""
     conn = sqlite3.connect(f"file:{quote(os.path.abspath(path))}?mode=ro", uri=True)
     try:
-        rows = conn.execute(
-            "SELECT link, ts, state, crc_errors FROM tpud_ici_snapshots_v0_1"
-        ).fetchall()
+        query = "SELECT link, ts, state, crc_errors FROM tpud_ici_snapshots_v0_1"
+        rows = (conn.execute(query).fetchall() if since is None
+                else conn.execute(query + " WHERE ts >= ?", (since,)).fetchall())
         try:
             tombs = dict(conn.execute(
                 "SELECT link, ts FROM tpud_ici_tombstones_v0_1").fetchall())
@@ -51,11 +54,12 @@ def _read_host(path: str):
 
 
 def host_links(path: str, start: float, flap_threshold: int, crc_threshold: int,
-               max_samples: int, tombstones: bool = True):
-    """(link names, classes, truncated names) of one DB, links sorted.
+               max_samples: int, tombstones: bool = True, since: Optional[float] = None):
+    """(link names, classes, truncated names) of one DB, links sorted, from
+    its rows at or after ``since`` (all if None; ``start`` cuts them again).
     ``tombstones=False`` ignores set-healthy (the control, which breaks that
     guarantee on purpose)."""
-    rows, tombs = _read_host(path)
+    rows, tombs = _read_host(path, since)
     if not tombstones:
         tombs = {}
     if not rows:
@@ -104,10 +108,14 @@ def host_links(path: str, start: float, flap_threshold: int, crc_threshold: int,
 
 def sweep(db_paths: List[str], window_seconds: float, now: float,
           flap_threshold: int = 3, crc_threshold: int = 100,
-          max_samples: int = MAX_SAMPLES, tombstones: bool = True) -> dict:
+          max_samples: int = MAX_SAMPLES, tombstones: bool = True,
+          margin_seconds: Optional[float] = None) -> dict:
     """The sweep's answer: ``links`` (name → class), ``summary`` (class →
-    count) and ``truncated_links`` (sorted)."""
+    count) and ``truncated_links`` (sorted). With ``margin_seconds``, rows
+    older than that margin before the window's start are not read; no row
+    before the start counts, so every margin of 0 or more gives one answer."""
     start = now - window_seconds
+    since = None if margin_seconds is None else start - margin_seconds
     links: Dict[str, str] = {}
     truncated: List[str] = []
     seen: Dict[str, int] = {}
@@ -116,7 +124,7 @@ def sweep(db_paths: List[str], window_seconds: float, now: float,
         seen[stem] = seen.get(stem, 0) + 1
         host = stem if seen[stem] == 1 else f"{stem}-{seen[stem]}"
         names, cls, trunc = host_links(path, start, flap_threshold, crc_threshold,
-                                       max_samples, tombstones)
+                                       max_samples, tombstones, since)
         for n, c in zip(names, cls.tolist()):
             links[f"{host}/{n}"] = CLASS_NAMES[c]
         truncated += [f"{host}/{n}" for n in trunc]

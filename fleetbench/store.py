@@ -12,7 +12,7 @@ layout that gives.
 from __future__ import annotations
 
 import sqlite3
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -39,14 +39,19 @@ DDL = (
 
 
 def write_host_db(path: str, links: list, ts: np.ndarray, states: np.ndarray,
-                  crc: np.ndarray, tombstones: Dict[str, float]) -> int:
-    """Write one host's DB: ``states`` and ``crc`` are [links, sweeps] and
-    ``ts`` the sweeps' times. Returns the number of snapshot rows."""
+                  crc: np.ndarray, tombstones: Dict[str, float],
+                  cache_kib: Optional[int] = None) -> int:
+    """Write one host's DB, or append to the DB at ``path``: ``states`` and
+    ``crc`` are [links, sweeps] and ``ts`` the sweeps' times. A page cache
+    of ``cache_kib`` changes how often pages are written, not what is
+    written. Returns the number of snapshot rows."""
     n_links, n_sweeps = states.shape
     conn = sqlite3.connect(path)
     try:
         conn.execute("PRAGMA journal_mode=OFF")
         conn.execute("PRAGMA synchronous=OFF")
+        if cache_kib:
+            conn.execute(f"PRAGMA cache_size=-{int(cache_kib)}")
         for ddl in DDL:
             conn.execute(ddl)
         # sweep-major: row r is link r % n_links of sweep r // n_links

@@ -20,7 +20,7 @@ HOST_METRICS = {"assemble_ms", "load_ms", "load_ns_per_row", "split_ms", "h2d_ms
 
 @pytest.mark.parametrize("traced", [False, True])
 def test_run_is_correct_on_cpu(cpu_program, tmp_path, traced):
-    cell = small_cell()
+    cell = small_cell("su-shift")  # the cell that reports every metric below
     out = cpu_run(cell, tmp_path, traced=traced)
     assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 1
     assert all(c["value"] == 0 == c["limit"] for c in out["checks"].values())
@@ -58,14 +58,15 @@ def test_dropped_in_files_are_taken_up(cpu_program, tmp_path):
                               "chips": 1, "why": "test"})
     spec["per_layer"] += [
         {"name": "sweeps_done", "unit": "sweeps", "better": "higher", "source": "host_clock",
-         "layer": "test", "moves": "sweep_s"},
+         "layer": "test", "moves": "sweep_rss_mb"},
         {"name": "never_read", "unit": "s", "better": "lower", "source": "host_clock",
-         "layer": "test", "moves": "sweep_s"}]
+         "layer": "test", "moves": "sweep_rss_mb"}]
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
 
     cell = harness.find_cell(spec, "tiny-half", root, root / "fleetbench")
     assert cell.config["hosts"] == 3 and cell.traffic["window_seconds"] == 1800
-    # every cell takes up a new metric; one whose reader finds nothing is left out
+    # every cell that reports the end-to-end metric a new metric moves takes
+    # it up; one whose reader finds nothing is left out
     assert [m["name"] for m in harness.find_cell(spec, "su-hour", root, root / "fleetbench")
             .per_layer][-2:] == ["sweeps_done", "never_read"]
     out = cpu_run(cell, tmp_path)
@@ -73,6 +74,22 @@ def test_dropped_in_files_are_taken_up(cpu_program, tmp_path):
     got = harness.read_metrics(cell.per_layer, out["run"], root / "fleetbench")
     assert got["sweeps_done"] == {"value": out["attempted"], "unit": "sweeps"}
     assert "never_read" not in got
+
+
+@pytest.mark.parametrize("name", [w["name"] for w in harness.load_json(
+    CHECKOUT / "BENCHMARK.json")["workloads"]])
+def test_each_cell_reports_what_its_metrics_name(name):
+    """A cell reports setup_s, another end-to-end metric and a per-layer one;
+    each per-layer metric it reports moves an end-to-end metric it reports,
+    and a metric that lists cells is reported in those alone."""
+    spec = harness.load_json(CHECKOUT / "BENCHMARK.json")
+    cell = harness.find_cell(spec, name)
+    e2e = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
+    assert all(m["moves"] in e2e for m in cell.per_layer)
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "workloads" in m:
+            assert (m in cell.end_to_end + cell.per_layer) == (name in m["workloads"])
 
 
 def test_sweeps_add_resident_memory(tmp_path):
@@ -106,8 +123,17 @@ def _fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *_a: 1)
 
 
+# what each kind of cell reports: su-shift every metric, the cells whose
+# sweep_s the host's drift spreads past any bound the rest
+REPORTED = {("su-shift", 0): ({"sweep_s", "sweep_rss_mb", "setup_s"}, set()),
+            ("su-shift", 1): ({"load_ms", "split_ms"}, {"sweep_s.unbounded"}),
+            ("su-hour", 0): ({"sweep_rss_mb", "setup_s"}, {"sweep_s"}),
+            ("su-hour", 1): ({"sweep_s.unbounded"}, {"load_ms", "split_ms"})}
+
+
+@pytest.mark.parametrize("workload", ["su-shift", "su-hour"])
 @pytest.mark.parametrize("trace", [0, 1])
-def test_last_line_has_the_contract_keys(cpu_program, monkeypatch, trace):
+def test_last_line_has_the_contract_keys(cpu_program, monkeypatch, trace, workload):
     from fleetbench import run as run_py
 
     _fake_card(monkeypatch)
@@ -121,7 +147,7 @@ def test_last_line_has_the_contract_keys(cpu_program, monkeypatch, trace):
     monkeypatch.setattr(harness, "find_cell", small)
     stdout, stderr = io.StringIO(), io.StringIO()
     with redirect_stdout(stdout), redirect_stderr(stderr):
-        rc = run_py.main(["--workload", "su-hour", "--seed", str(2**33 + 1), "--seconds", "0.2",
+        rc = run_py.main(["--workload", workload, "--seed", str(2**33 + 1), "--seconds", "0.2",
                           "--trace", str(trace)])
     assert rc == 0
     line = json.loads(stdout.getvalue().strip().splitlines()[-1])
@@ -130,8 +156,8 @@ def test_last_line_has_the_contract_keys(cpu_program, monkeypatch, trace):
     assert line["correct"] is True
     assert set(line["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
     assert all(set(m) == {"value", "unit"} for m in line["metrics"].values())
-    wanted = {"sweep_s", "sweep_rss_mb", "setup_s"} if not trace else {"load_ms", "split_ms"}
-    assert wanted <= set(line["metrics"])
+    wanted, unwanted = REPORTED[workload, trace]
+    assert wanted <= set(line["metrics"]) and not unwanted & set(line["metrics"])
     if trace:
         assert set(line["device"]) >= {"busy_s", "window_s"}
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}

@@ -15,7 +15,7 @@ PROGRAM_METRICS = set(LOADER_PARTS) | {"load_fetch_ns_per_row"}
 
 @pytest.mark.parametrize("traced", [False, True])
 def test_readers_find_the_program_spans(cpu_program, tmp_path, traced):
-    cell = small_cell()
+    cell = small_cell("su-shift")  # the cell that reports the loader's metrics
     out = cpu_run(cell, tmp_path, traced=traced)
     run = out["run"]
     got = harness.read_metrics(cell.per_layer, run)
@@ -37,7 +37,7 @@ def test_readers_find_the_program_spans(cpu_program, tmp_path, traced):
 def test_readers_are_silent_without_program_spans(cpu_program, tmp_path):
     from gpud_tpu_torch.tracing import DEFAULT_TRACER
 
-    cell = small_cell(hosts=3)
+    cell = small_cell("su-shift", hosts=3)
     run = cpu_run(cell, tmp_path)["run"]
     DEFAULT_TRACER.clear()  # as a program that records no span leaves it
     got = harness.read_metrics(cell.per_layer, run)
