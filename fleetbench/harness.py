@@ -26,7 +26,7 @@ import resource
 import statistics
 import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -36,6 +36,10 @@ CHECKOUT = BENCH_DIR.parent
 # the generator's clock: every DB's timestamps hang from it, and every sweep
 # is asked about the window that ends there
 NOW = 1_760_000_000.0
+# rows a writer child takes at the least: starting one (an interpreter and
+# numpy, ~0.7 s on the H100 machine's host) pays where it takes that long
+# off the writing (~4 us a row there)
+ROWS_PER_WRITER = 250_000
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpud_tpu")
 
@@ -101,7 +105,7 @@ def read_metrics(entries: List[dict], run, bench_dir: Path = BENCH_DIR) -> Dict[
 class Run:
     """What a run measured, as the metric readers see it."""
 
-    fleet: object                       # the generator's Fleet: rows, links
+    fleet: object                       # the generator's Fleet, its hosts left out: rows, links
     setup_s: float
     window_s: float
     window_cpu_s: float                 # CPU seconds of the sweeping thread
@@ -122,23 +126,59 @@ def write_fleet(fleet, workdir: str, config: Optional[dict] = None,
     """Every host's DB under ``workdir``. Returns the paths and what the
     store holds (``rows_stored``, ``db_bytes``). A configuration with
     ``store_retention_seconds`` gets the store's older history beneath the
-    generated rows (``fleetbench/retained.py``); any other, the generated
-    rows alone."""
-    from fleetbench.store import write_host_db
-
+    generated rows (``fleetbench/retained.py``). Any other gets the
+    generated rows alone, each host's DB made whole by
+    ``store.write_host_file`` in child interpreters side by side (one a
+    ``ROWS_PER_WRITER`` rows, at most one a core); if one fails, no DB is
+    left and its error is raised."""
     if config is not None and "store_retention_seconds" in config:
         from fleetbench import retained
 
         paths, store = retained.write_fleet(fleet, workdir, config, marks, t0)
     else:
-        paths = []
-        for host in fleet.hosts:
-            path = os.path.join(workdir, f"{host.name}.db")
-            write_host_db(path, host.links, host.ts, host.states, host.crc, host.tombstones)
-            paths.append(path)
+        from fleetbench.reference.children import call_all
+        from fleetbench.store import write_host_file
+
+        paths = [os.path.join(workdir, f"{h.name}.db") for h in fleet.hosts]
+        try:
+            call_all(write_host_file, [(path, h.links, h.ts, h.states, h.crc, h.tombstones)
+                                       for path, h in zip(paths, fleet.hosts)],
+                     -(-fleet.rows_stored // ROWS_PER_WRITER))
+        except BaseException:
+            for path in paths:
+                with contextlib.suppress(FileNotFoundError):
+                    os.unlink(path)
+            raise
         store = {"rows_stored": fleet.rows_stored}
     store["db_bytes"] = sum(os.path.getsize(p) for p in paths)
     return paths, store
+
+
+def build_fleet(generator: str, config: dict, traffic: dict, seed: int, workdir: str,
+                t0: float):
+    """The fleet generated from ``seed`` by the mix's ``generator`` (its
+    file) and written by ``write_fleet``; ``set_up`` runs it in a child.
+    Returns the fleet without its hosts' rows, the paths, the store and the
+    set-up's marks."""
+    mix = load_module(Path(generator), f"fleetbench_mix_{traffic['generator']}")
+    fleet = mix.generate(config, traffic, seed, NOW)
+    marks = {"generated": time.perf_counter() - t0}
+    paths, store = write_fleet(fleet, workdir, config, marks, t0)
+    return replace(fleet, hosts=[]), paths, store, marks
+
+
+def set_up(cell: Cell, seed: int, workdir: str, t0: float):
+    """``build_fleet`` for the cell in a child interpreter, so that the
+    generator's and the writer's heap never reach the sweeping process:
+    its resident memory before the first sweep is what a ``fleet-scan``
+    process has. Returns what ``build_fleet`` does, the marks (seconds
+    since ``t0``, on the clock every process shares) with ``start``."""
+    from fleetbench.reference.children import call_all
+
+    start = time.perf_counter() - t0
+    (fleet, paths, store, marks), = call_all(
+        build_fleet, [(cell.generator.__file__, cell.config, cell.traffic, seed, workdir, t0)])
+    return fleet, paths, store, {"start": start, **marks}
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, t0: float,
@@ -146,13 +186,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, t0: float,
     """Set up, measure, judge. Returns the result line's fields (without
     ``device``'s trace keys) and the run's ``Run`` under ``"run"``."""
     from fleetbench import judge, trace as tr
-    from fleetbench.peaks import scan_work_bytes
+    from fleetbench.peaks import H100_SXM, scan_work_bytes
     from fleetbench.reference import fleet as reference
 
-    marks = {"start": time.perf_counter() - t0}
-    fleet = cell.generator.generate(cell.config, cell.traffic, seed, NOW)
-    marks["generated"] = time.perf_counter() - t0
-    paths, store = write_fleet(fleet, workdir, cell.config, marks, t0)
+    fleet, paths, store, marks = set_up(cell, seed, workdir, t0)
     marks["written"] = time.perf_counter() - t0
     window = float(cell.traffic["window_seconds"])
 
@@ -162,7 +199,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, t0: float,
 
     spans = tr.Spans()
     sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
-    wrapped = tr.install(fs, spans, sync) if traced else []
+    # twice the L2 of each card the scan runs on, written over before each scan
+    l2 = [torch.empty(2 * H100_SXM["l2_bytes"], dtype=torch.uint8, device=d)
+          for d in (fs._scan_devices(None) if traced else []) if d.type == "cuda"]
+    flush = (lambda: [b.zero_() for b in l2]) if l2 else None
+    wrapped = tr.install(fs, spans, sync, flush) if traced else []
     sweep = spans.wrap(fs.fleet_scan, "fleet_scan", False, False, sync) if traced else fs.fleet_scan
 
     marks["imported"] = time.perf_counter() - t0

@@ -4,7 +4,9 @@ The device time is that of the kernels launched inside the span around
 ``ops.packed_scan.scan_links_packed`` (the device synchronised on both
 sides), per call, from the profiler's trace. The least time is the work's
 bytes (``peaks.scan_work_bytes``: the rows the scan needs and its results,
-not the layout) at the card's HBM rate.
+not the layout) at the card's HBM rate; the traced run evicts the scan's
+inputs from the L2 cache before each call (``trace.FLUSHED``), so they come
+from HBM.
 """
 
 from fleetbench.peaks import scan_bound_s

@@ -19,7 +19,9 @@ the link store's rules:
   listed in ``truncated_links``.
 
 Links are named ``<db stem>/<link>``; a stem seen before gets ``-2``,
-``-3``, ... in the order the paths are given.
+``-3``, ... in the order the paths are given. The DBs are read and judged
+side by side, one ``host_links`` call a DB in child interpreters
+(``children.call_all``); names and the order of the answer are decided here.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Dict, List, Optional
 from urllib.parse import quote
 
 import numpy as np
+
+from .children import call_all
 
 CLASS_NAMES = ("healthy", "degraded", "unhealthy")
 MAX_SAMPLES = 20160
@@ -116,15 +120,17 @@ def sweep(db_paths: List[str], window_seconds: float, now: float,
     before the start counts, so every margin of 0 or more gives one answer."""
     start = now - window_seconds
     since = None if margin_seconds is None else start - margin_seconds
-    links: Dict[str, str] = {}
-    truncated: List[str] = []
+    hosts: List[str] = []
     seen: Dict[str, int] = {}
     for path in db_paths:
         stem = os.path.splitext(os.path.basename(path))[0]
         seen[stem] = seen.get(stem, 0) + 1
-        host = stem if seen[stem] == 1 else f"{stem}-{seen[stem]}"
-        names, cls, trunc = host_links(path, start, flap_threshold, crc_threshold,
-                                       max_samples, tombstones, since)
+        hosts.append(stem if seen[stem] == 1 else f"{stem}-{seen[stem]}")
+    per_db = call_all(host_links, [(path, start, flap_threshold, crc_threshold, max_samples,
+                                    tombstones, since) for path in db_paths])
+    links: Dict[str, str] = {}
+    truncated: List[str] = []
+    for host, (names, cls, trunc) in zip(hosts, per_db):
         for n, c in zip(names, cls.tolist()):
             links[f"{host}/{n}"] = CLASS_NAMES[c]
         truncated += [f"{host}/{n}" for n in trunc]

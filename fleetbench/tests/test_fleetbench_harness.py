@@ -201,3 +201,20 @@ def test_forbidden_names_compared_whole(monkeypatch):
     bad = harness.forbidden_modules()
     assert {"jax.numpy", "gpud_tpu.fleet_scan", "flax"} <= set(bad)
     assert not {"gpud_tpu_torch_x", "jaxtyping", "gpud_tpu_torch"} & set(bad)
+
+
+def test_the_scan_s_inputs_leave_the_l2_before_its_span():
+    from types import SimpleNamespace
+
+    from fleetbench import trace as tr
+
+    events = []
+    program = SimpleNamespace(packed_from_numpy=lambda: events.append("copy"),
+                              scan_links_packed=lambda: events.append("scan"))
+    names = tr.install(program, tr.Spans(), lambda: events.append("sync"),
+                       lambda: events.append("flush"))
+    program.packed_from_numpy()
+    program.scan_links_packed()
+    assert events == ["copy", "sync", "flush", "sync", "scan", "sync"]
+    tr.uninstall(program, names)
+    assert program.scan_links_packed.__name__ == "<lambda>"

@@ -26,6 +26,10 @@ WRAPPED = {
     "packed_from_numpy": (False, True),
     "scan_links_packed": (True, True),
 }
+# wrapped functions whose inputs the traced run first evicts from the cards'
+# L2 caches, so that the scan reads them from HBM as its roofline counts
+# (``peaks.scan_bound_s``): the copy just before it leaves up to 50 MB there
+FLUSHED = ("scan_links_packed",)
 ANNOTATION = "fleetbench."
 NAME_CHARS = 120  # demangled kernel names run to a thousand characters
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -41,12 +45,14 @@ class Spans:
         for spans in self.by_name.values():  # the wrappers hold these lists
             spans.clear()
 
-    def wrap(self, fn, name: str, sync_before: bool, sync_after: bool, sync):
+    def wrap(self, fn, name: str, sync_before: bool, sync_after: bool, sync, flush=None):
         from torch.profiler import record_function
 
         spans = self.by_name[name]
 
         def timed(*args, **kwargs):
+            if flush is not None:
+                flush()
             if sync_before:
                 sync()
             with record_function(ANNOTATION + name):
@@ -61,14 +67,17 @@ class Spans:
         return timed
 
 
-def install(module, spans: Spans, sync) -> List[str]:
-    """Wrap the functions of ``WRAPPED`` that ``module`` has; return their
-    names. ``uninstall`` puts the originals back."""
+def install(module, spans: Spans, sync, flush=None) -> List[str]:
+    """Wrap the functions of ``WRAPPED`` that ``module`` has, those of
+    ``FLUSHED`` calling ``flush`` first (before the synchronise, so that its
+    device work lies outside their spans); return their names.
+    ``uninstall`` puts the originals back."""
     done = []
     for name, (before, after) in WRAPPED.items():
         fn = getattr(module, name, None)
         if callable(fn):
-            setattr(module, name, spans.wrap(fn, name, before, after, sync))
+            setattr(module, name, spans.wrap(fn, name, before, after, sync,
+                                             flush if name in FLUSHED else None))
             done.append(name)
     return done
 
